@@ -1,8 +1,9 @@
 """CLI entry: python -m evplp_tpu_torch config.json [--output-dir DIR]
 [--max-wall-s S] [--device cuda|cpu]
 
-Runs a reference-format photonfam config on the card.  The CPU runs only
-when asked for with --device cpu; without a card the CLI raises.
+Runs a reference-format photonfam config (EVPLP, or VSL with forceVsl) on
+the card.  The CPU runs only when asked for with --device cpu; without a
+card the CLI raises.
 """
 from __future__ import annotations
 

@@ -27,6 +27,12 @@ def lambert_pdf_w(n, v):
     return torch.clamp_min(dot(n, normalize(v)), 0.0) * INV_PI
 
 
+def lambert_pdf_w_nopi(n, v):
+    """max(cos, 0) without the 1/pi: the reference's CUDA LambertPdfW omits
+    it, and the VSL MIS weights keep that quirk."""
+    return torch.clamp_min(dot(n, normalize(v)), 0.0)
+
+
 def lambert_pdf_a(n1, n2, v12):
     """Area-domain cosine pdf with unnormalized v12: cos1 cos2 / d2 / pi."""
     cos1_u = torch.clamp_min(dot(n1, v12), 0.0)

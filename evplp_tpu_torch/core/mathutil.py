@@ -19,8 +19,10 @@ EPS_COS = 1e-6           # cosine cutoffs in Phong eval
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched dot product over the last axis."""
-    return torch.sum(a * b, dim=-1)
+    """Batched dot product over the last axis, summed ((x + y) + z) on
+    every device (a reduction kernel may pick another order)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
@@ -80,6 +82,20 @@ def square_to_cosine_hemisphere(u: torch.Tensor) -> torch.Tensor:
     phi = TWO_PI * y
     return torch.stack([torch.cos(phi) * r, torch.sin(phi) * r,
                         torch.sqrt(torch.clamp_min(x, 0.0))], dim=-1)
+
+
+def square_to_cone(u: torch.Tensor, cos_half: torch.Tensor) -> torch.Tensor:
+    """Uniform direction in the cone around +z whose half angle has cosine
+    cos_half."""
+    phi = TWO_PI * u[..., 0]
+    z = 1.0 - u[..., 1] * (1.0 - cos_half)
+    sl = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    return torch.stack([torch.cos(phi) * sl, torch.sin(phi) * sl, z], dim=-1)
+
+
+def square_to_solid_angle(u: torch.Tensor, half_angle: torch.Tensor) -> torch.Tensor:
+    """Uniform direction in a cone of half_angle around +z."""
+    return square_to_cone(u, torch.cos(half_angle))
 
 
 def square_to_barycentric(u: torch.Tensor):

@@ -62,6 +62,12 @@ def uniform4(x, y, z, w):
                  for v in pcg4d(x, y, z, w))
 
 
+def seeds_from_key(key: torch.Tensor):
+    """Two uint32 stream seeds from a threefry key (..., 2): its first and
+    last words, as the JAX package's `seeds_from_key` takes them."""
+    return key[..., 0], key[..., -1]
+
+
 # ---------------------------------------------------------------------------
 # threefry2x32 (Salmon et al., SC'11), as jax.random draws it
 # ---------------------------------------------------------------------------

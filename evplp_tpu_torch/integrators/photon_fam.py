@@ -1,11 +1,11 @@
 """EVPLP technique family, one frame (counterpart of the JAX package's
 `integrators/photon_fam.py`).
 
-One frame = G-buffer -> light tracing -> VPL gather -> photon splat ->
-emitter image, accumulated into a FrameState.  The progressive-mode scalars
-(photon radius, clamping value, pdf_mc) are arguments, so the schedule can
-change them every frame.  The VSL and LVC branches are not ported yet and
-raise NotImplementedError.
+One frame = G-buffer -> light tracing -> VPL gather (or, with forceVsl,
+the VSL gather) -> photon splat -> emitter image, accumulated into a
+FrameState.  The progressive-mode scalars (photon radius, clamping value,
+pdf_mc, VSL radius) are arguments, so the schedule can change them every
+frame.  The LVC branch is not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from evplp_tpu_torch.integrators.light_trace import (trace_light_paths,
                                                      zero_photon_map)
 from evplp_tpu_torch.integrators.photon_splat import photon_splat_binned
 from evplp_tpu_torch.integrators.vpl import vpl_gather
+from evplp_tpu_torch.integrators.vsl import vsl_gather
 from evplp_tpu_torch.scene.scene import SceneData
 
 
@@ -74,10 +75,9 @@ def state_from_arrays(vpl_acc, photon_acc, light_img, dropped,
 
 def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
                      state: FrameState, key: torch.Tensor, radius: float,
-                     clamping_value: float, pdf_mc: float) -> FrameState:
+                     clamping_value: float, pdf_mc: float,
+                     vsl_radius: float = 0.0) -> FrameState:
     """Advance one iteration.  key is the frame's threefry key."""
-    if cfg.force_vsl:
-        raise NotImplementedError("forceVsl (VSL gather) is not ported yet")
     if cfg.lvc:
         raise NotImplementedError("lvcphotonfam (LVC gather) is not ported yet")
     dev = scene.device
@@ -103,8 +103,12 @@ def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
 
     vpl_acc = state.vpl_acc
     if cfg.do_vpl and cfg.num_vpl_light_paths > 0:
-        img = vpl_gather(scene, gbuf, pm, cfg.mis_mode, pdf_mc,
-                         clamping_value, cfg.num_vpl_light_paths)
+        if cfg.force_vsl:
+            img = vsl_gather(scene, gbuf, pm, rng.fold_in(key, 2), vsl_radius,
+                             cfg.num_vpl_light_paths)
+        else:
+            img = vpl_gather(scene, gbuf, pm, cfg.mis_mode, pdf_mc,
+                             clamping_value, cfg.num_vpl_light_paths)
         vpl_acc = vpl_acc + img if cfg.accumulate else img
 
     photon_acc = state.photon_acc

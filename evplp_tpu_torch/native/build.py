@@ -1,4 +1,5 @@
-"""Build native sources into shared libraries at first use.
+"""Build native sources into shared libraries at first use, and check the
+tensors handed to them.
 
 A library is named after a hash of its compile command and source bytes, so
 a stale build is never loaded, and lands in `build/evplp_tpu_torch/` at the
@@ -12,7 +13,15 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
+
+import torch
+
+# -fmad=false: no fused multiply-add, so a kernel rounds op for op as its
+# plain PyTorch version does
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -46,3 +55,24 @@ def build_library(name: str, sources: list[str], compile_cmd: list[str]) -> str:
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return path
+
+
+def nvcc_command() -> list[str]:
+    """nvcc and the flags every CUDA kernel of the port is built with."""
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return [cand] + NVCC_FLAGS
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def check_tensor(x: torch.Tensor, name: str, dtype, shape, device):
+    """Raise unless x lies on device with this dtype and shape, contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -49,15 +49,18 @@ def _write_stat(params, time_ms: float, iters: int, output_dir: str | None):
 
 
 class ProgressiveSchedule:
-    """Knaus-Zwicker radius / clamp schedule of the reference."""
+    """Knaus-Zwicker radius / clamp schedule of the reference; the VSL
+    radius (0 when VSL is off) shrinks with the photon radius, down to
+    0.008."""
 
-    def __init__(self, radius0, clamp0, alpha, num_vpl, num_lp):
+    def __init__(self, radius0, clamp0, alpha, num_vpl, num_lp, vsl_radius0):
         self.radius = radius0
         self.clamp_start = clamp0
         self.clamp = clamp0
         self.alpha = alpha
         self.num_vpl = num_vpl
         self.num_lp = num_lp
+        self.vsl_radius = vsl_radius0
         self.pdf_mc = self._pdf_mc()
 
     def _pdf_mc(self):
@@ -71,6 +74,9 @@ class ProgressiveSchedule:
         self.radius *= float(np.sqrt(ratio))
         self.clamp = self.clamp_start * float(num_iterations) ** self.alpha
         self.pdf_mc = self._pdf_mc()
+        if self.vsl_radius > 0.0:
+            self.vsl_radius = max(self.vsl_radius * float(np.sqrt(ratio)),
+                                  0.008)
 
 
 class BudgetPacer:
@@ -135,15 +141,21 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
     radius0 = max(scene.bounding_radius * p.radius_percentage, 1e-6)
     clamp0 = (1.0 / scene.total_area if p.clamping_coeff is None
               else p.clamping_coeff)
+    vsl_radius0 = 0.0
+    if p.force_vsl:
+        vsl_radius0 = max(scene.bounding_radius * p.vsl_radius_percentage,
+                          0.008)
     sched = ProgressiveSchedule(radius0, clamp0, p.alpha_progressive,
-                                p.num_vpl_light_paths, p.num_light_paths)
+                                p.num_vpl_light_paths, p.num_light_paths,
+                                vsl_radius0)
     cfg = _frame_config(job)
     state = init_state(cfg, dev)
 
     def frame(st, iteration):
         return photon_fam_frame(scene, cfg, st,
                                 iteration_key(0, iteration, dev),
-                                sched.radius, sched.clamp, sched.pdf_mc)
+                                sched.radius, sched.clamp, sched.pdf_mc,
+                                sched.vsl_radius)
 
     frame(state, p.rng_offset).dropped.item()
     t0 = time.perf_counter()

@@ -54,6 +54,7 @@ class TechniqueParams:
     do_progressive: bool = False
     alpha_progressive: float = 0.7
     force_vsl: bool = False
+    vsl_radius_percentage: float = 0.0
     combined_filename: str = ""
     weighted_photon_filename: str = ""
     weighted_vpl_filename: str = ""
@@ -109,8 +110,9 @@ def parse_technique(tech: str, j: dict) -> TechniqueParams:
     # 0 VPL paths disables the VPL splat, as in the reference
     if p.num_vpl_light_paths == 0:
         p.run_passes["vplSplat"] = False
-    # VSL is not ported yet: the frame refuses force_vsl
-    p.force_vsl = tech == "photonfam" and bool(j.get("forceVsl", False))
+    if tech == "photonfam" and bool(j.get("forceVsl", False)):
+        p.force_vsl = True
+        p.vsl_radius_percentage = float(j["vslRadiusPercentage"])
     return p
 
 

@@ -15,33 +15,21 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 
 import torch
 
-from evplp_tpu_torch.native.build import build_library
+from evplp_tpu_torch.native.build import build_library, check_tensor, nvcc_command
 
 TRI_EPS = 1e-9          # determinant cutoff
 BIG = 3.4e38
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "traverse.cu")
-# -fmad=false: no fused multiply-add, so the kernel rounds op for op as the
-# plain PyTorch version does and the two report the same prims
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 launches = 0
 _lock = threading.Lock()
 _lib = None
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the traversal kernel cannot be built")
 
 
 def load_library() -> ctypes.CDLL:
@@ -50,7 +38,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library("traverse", [_SRC],
-                                            [_nvcc()] + NVCC_FLAGS))
+                                            nvcc_command()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for fn in (lib.evplp_traverse_closest, lib.evplp_traverse_any):
                 fn.restype = ci
@@ -59,18 +47,6 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = [vp] * 5 + [ci] + [vp] * 7 + [ci] + [vp] * 5
             _lib = lib
     return _lib
-
-
-def _check(x: torch.Tensor, name: str, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, rays are on {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
@@ -93,7 +69,7 @@ def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
             (tris.e2, "e2", f32, (nt, 3)),
             (o, "o", f32, (r, 3)), (d, "d", f32, (r, 3)),
             (t_min, "t_min", f32, (r,)), (t_max, "t_max", f32, (r,))):
-        _check(x, name, dt, shape, dev)
+        check_tensor(x, name, dt, shape, dev)
     t = torch.empty((r,), dtype=f32, device=dev)
     prim = torch.empty((r,), dtype=i32, device=dev)
     u = torch.empty((r,), dtype=f32, device=dev)

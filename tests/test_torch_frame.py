@@ -1,12 +1,17 @@
 """The port's whole "ours" frame and run loop against the JAX package.
 
 * config -> run_photon_fam on the Cornell box against the committed goldens
-  `tests/golden/ours.npz` and `ours_prog.npz`, at the goldens' own
-  tolerance (rtol 2e-3, atol 2e-4, as tests/test_golden.py uses);
+  `tests/golden/ours.npz`, `ours_prog.npz` and `vsl.npz`, at the goldens'
+  own tolerance (rtol 2e-3, atol 2e-4, as tests/test_golden.py uses),
+  except at the two VSL pixels of GOLDEN_FLIPS;
+* a progressive VSL run (Cornell, 3 frames, the VSL radius shrinking every
+  frame) against the JAX package's run: rtol 2e-4, atol 2e-6, the VSL
+  gather's tolerance in test_torch_vsl;
 * two frames on the procedural box_field (>2048 triangles, BVH path) at
   16x16 against the JAX frame, the second starting from the JAX package's
   state: rtol 1e-4, atol 1e-5 (float order, as in test_torch_integrators);
-* the CLI on the CPU writes the three PFMs and the stat JSON."""
+* the CLI on the CPU writes the three PFMs and the stat JSON, for the
+  "ours" and the VSL technique."""
 import json
 import os
 
@@ -16,7 +21,9 @@ import pytest
 
 from evplp_tpu.core.sampling import iteration_key as jax_iteration_key
 from evplp_tpu.integrators import photon_fam as jpf
+from evplp_tpu.runtime.loop import run_photon_fam as jax_run_photon_fam
 from evplp_tpu.scene import procedural
+from evplp_tpu.scene.config import load_config as jax_load_config
 from evplp_tpu.scene.export import write_cornell_config
 from evplp_tpu_torch import __main__ as cli
 from evplp_tpu_torch.core.sampling import iteration_key
@@ -33,19 +40,37 @@ COMMON = dict(rngOffset=3, numMaxIteration=2, timeLimitMs=-1.0,
 OURS = dict(COMMON, numLightPaths=128, numVplLightPaths=8, numMaxBounces=2,
             radiusPercentage=0.05, combinedFilename="",
             weightedPhotonFilename="", weightedVplFilename="")
+VSL = dict(COMMON, numLightPaths=64, numVplLightPaths=64, numMaxBounces=2,
+           radiusPercentage=0.0, forceVsl=True, vslRadiusPercentage=0.05,
+           misMode="one", combinedFilename="", weightedPhotonFilename="",
+           weightedVplFilename="")
+
+
+# The VSL golden was rendered through the JAX package's jitted frame, whose
+# light vertices XLA rounds with fused multiply-adds.  Record 25 of the
+# first timed frame lies on the floor plane (y = -5.8e-8 there), and its
+# shadow segments to pixels (14, 6) and (14, 7), 3.9e-4 above the floor,
+# graze the floor: whether they cross it past eps = 1e-4 turns on the last
+# bit of y.  The port, like the JAX package's functions called one by one,
+# finds them unoccluded, which moves those two pixels by 0.6%.
+GOLDEN_FLIPS = {"ours": 0, "ours_prog": 0, "vsl": 2}
 
 
 @pytest.mark.parametrize("golden,block", [
     ("ours", OURS),
     ("ours_prog", dict(OURS, misMode="geometryClamp", DoProgressive=True,
                        AlphaProgressive=0.7)),
+    ("vsl", VSL),
 ])
 def test_cornell_goldens(tmp_path, golden, block):
     path = write_cornell_config(str(tmp_path), block, "photonfam", res=16,
                                 name="g" + golden)
     img = run_photon_fam(load_config(path, device="cpu")).images["combined"]
     ref = np.load(os.path.join(GOLDEN_DIR, f"{golden}.npz"))["img"]
-    np.testing.assert_allclose(img, ref, rtol=2e-3, atol=2e-4)
+    outside = ~np.isclose(img, ref, rtol=2e-3, atol=2e-4).all(axis=-1)
+    assert outside.sum() <= GOLDEN_FLIPS[golden], np.argwhere(outside)
+    np.testing.assert_allclose(img[~outside], ref[~outside], rtol=2e-3,
+                               atol=2e-4)
 
 
 def test_box_field_frames_match_jax():
@@ -80,8 +105,23 @@ def test_box_field_frames_match_jax():
     assert np.asarray(jstate.photon_acc).max() > 0.0
 
 
-def test_cli_writes_dumps_and_stats(tmp_path, capsys):
-    block = dict(OURS, numMaxIteration=1, useStat=True,
+def test_progressive_vsl_matches_jax(tmp_path):
+    block = dict(VSL, numMaxIteration=3, numLightPaths=32,
+                 numVplLightPaths=8, DoProgressive=True, AlphaProgressive=0.7)
+    path = write_cornell_config(str(tmp_path), block, "photonfam", res=16,
+                                name="gvslprog")
+    ref = jax_run_photon_fam(jax_load_config(path))
+    got = run_photon_fam(load_config(path, device="cpu"))
+    assert got.num_iterations == ref.num_iterations == 3
+    assert ref.images["weighted_vpl"].max() > 0.0
+    for k in ("combined", "weighted_vpl", "weighted_photon"):
+        np.testing.assert_allclose(got.images[k], np.asarray(ref.images[k]),
+                                   rtol=2e-4, atol=2e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("block", [OURS, VSL], ids=["ours", "vsl"])
+def test_cli_writes_dumps_and_stats(tmp_path, capsys, block):
+    block = dict(block, numMaxIteration=1, useStat=True,
                  statFilename="out/c_stat.json", combinedFilename="out/c.pfm",
                  weightedVplFilename="out/c_vpl.pfm",
                  weightedPhotonFilename="out/c_pm.pfm")

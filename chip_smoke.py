@@ -6,16 +6,23 @@
 Run from a checkout of the repository on a machine with a CUDA card.  It
 builds the port's kernels from the sources (one nvcc per source, all at
 once) and holds each kernel against its plain PyTorch version on samples of
-the main paths' inputs.  It drives two paths through the port's CLI at full
-size: the EVPLP "ours" photonfam config
-`configs/box_field/box_field_ours.json` (1280x720, 300k light paths, 30 VPL
-paths, 4 records) for two frames, and the VSL config
-`configs/box_field/box_field_vsl.json` (1280x720, 100 VSL paths, 400
-records, forceVsl) for one frame plus the warm-up.  It checks their
-outputs and the kernels each one launched, times each pass of both frames,
-and renders small references on the card (the Cornell goldens, and 64x36
-box_field frames against the same frames on the CPU).  Each phase prints
-one line; any failure raises and exits non-zero.  The line before the last
+the main paths' inputs: the three BVH traversal kernels (traverse.cu,
+packet7.cu, packet.cu) and the VSL sample kernel.  It drives these paths
+through the port's CLI at full size (1280x720), each with every kernel
+count set to 0 just before and read just after: the EVPLP "ours" photonfam
+config `configs/box_field/box_field_ours.json` (300k light paths, 30 VPL
+paths, 4 records) for two frames; the VSL config
+`configs/box_field/box_field_vsl.json` (100 VSL paths, 400 records,
+forceVsl), the path-tracing config `configs/box_field/box_field_pt.json`
+(3 bounces, 1 spp), and the PM and VPL configs `box_field_pm.json` and
+`box_field_vpl.json`, for the frames their constants say, each plus the
+warm-up.  It renders the same full-size PT frame under each value of the
+traversal switch `trace/intersect.py:PACKET_IMPL` and holds the three
+kernels to each other cast by cast.  It checks the outputs and the kernels
+each path launched, times each pass, and renders small references on the
+card (the Cornell goldens, and 64x36 box_field frames against the same
+frames on the CPU).  Each phase prints one line; any failure raises and
+exits non-zero.  The line before the last
 is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the port's package
 beside this file, it exits non-zero and prints no result.
@@ -34,20 +41,53 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_ours.json")
 VSL_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_vsl.json")
+PT_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_pt.json")
+PM_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_pm.json")
+VPL_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_vpl.json")
+CORNELL = os.path.join(HERE, "configs", "cornell")
+PT_FRAMES = 3            # timed PT frames through the CLI (+ the warm-up)
 SAMPLE_RAYS = 65_536
+# live rays of each PT cast whose walks are counted for the frame's
+# operations bound (a strided sample, scaled to the cast's live rays)
+FRAME_OPS_SAMPLE = 4096
 SAMPLE_PIXELS = 65_536
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# float operations of the kernel's inner steps, counted from
-# csrc/traverse.cu: one slab test (6 sub, 6 mul, 10 min/max, 3 compares)
-# and one Moller-Trumbore test (53 add/mul/div/compare)
+# float operations of the traversal kernels' inner steps, counted from
+# csrc/traverse.cu, packet.cu and packet7.cu: one slab test (6 sub, 6 mul,
+# 10 min/max, 3 compares) and one Moller-Trumbore test (53
+# add/mul/div/compare); packet7.cu's inner step adds to its two slab tests
+# 20 compares and selects of its leaf and near-child steering
 SLAB_OPS = 25
 TRI_OPS = 53
+P7_STEER_OPS = 20
 # bytes a ray moves: o, d, t_min, t_max in; t, prim, u, v out
 RAY_BYTES = 48
+# the three traversal kernels: module, CUDA wrapper, plain version, the
+# PACKET_IMPL value that selects it, its source and the TPU kernel it
+# replaces
+TRAVERSALS = {
+    "bvh_traverse": dict(module="traverse", cuda="traverse_cuda",
+                         plain="traverse_plain", impl="packet3",
+                         source="evplp_tpu_torch/csrc/traverse.cu",
+                         replaces="evplp_tpu/trace/packet3.py:63"),
+    "packet7": dict(module="packet7", cuda="packet7_cuda",
+                    plain="packet7_plain", impl="packet7",
+                    source="evplp_tpu_torch/csrc/packet7.cu",
+                    replaces="evplp_tpu/trace/packet7.py:48"),
+    "packet": dict(module="packet", cuda="packet_cuda",
+                   plain="packet_plain", impl="packet",
+                   source="evplp_tpu_torch/csrc/packet.cu",
+                   replaces="evplp_tpu/trace/packet.py:53"),
+}
+KERNELS = tuple(TRAVERSALS) + ("vsl_sample",)
+# the PT frames under the three traversal kernels: pixels whose channels
+# differ beyond rtol 1e-4 / atol 1e-5, at most this many (a t-tie may pick
+# another triangle under packet7's near-child-first order)
+PT_IMPL_RTOL, PT_IMPL_ATOL, PT_IMPL_MAX_PIXELS = 1e-4, 1e-5, 9
 # operations of the VSL sample kernel, counted from csrc/vsl_sample.cu:
 # per sample 660 float operations (sin, cos, pow and sqrt count as one
 # each, so the bound is a lower bound) and 64 integer operations of the two
@@ -58,9 +98,10 @@ VSL_PAIR_OPS = 33
 # in, G cos_half and count planes in, 3 floats out
 VSL_PIXEL_BYTES = 4 * (16 + 2 + 3)
 VSL_PIXEL_RECORD_BYTES = 8
-# the VSL golden's two pixels whose shadow test turns on the last bit of a
-# light vertex (tests/test_torch_frame.py GOLDEN_FLIPS)
-GOLDEN_FLIPS = {"ours": 0, "ours_prog": 0, "vsl": 2}
+# the VSL golden's two pixels (row, col) whose shadow test turns on the
+# last bit of a light vertex (tests/test_torch_frame.py GOLDEN_FLIPS)
+GOLDEN_FLIPS = {"ours": set(), "ours_prog": set(), "vsl": {(14, 6), (14, 7)},
+                "pt": set()}
 
 
 def phase(name: str, **fields):
@@ -81,17 +122,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def closest_matches(k, p) -> bool:
-    """Kernel and plain closest hits agree: same hit/miss, t at rtol 1e-4,
-    and equal prims or a t-tie at rtol 1e-4 (coplanar duplicates)."""
-    import torch
-    tk, pk, _, _ = k
-    tp, pp, _, _ = p
-    hit_match = bool(((pk >= 0) == (pp >= 0)).all())
-    m = (pk >= 0) & (pp >= 0)
-    t_close = torch.isclose(tk[m], tp[m], rtol=1e-4, atol=0.0)
-    prim_ok = (pk[m] == pp[m]) | t_close
-    return hit_match and bool(t_close.all()) and bool(prim_ok.all())
+def traversal_module(name):
+    import importlib
+    return importlib.import_module(
+        "evplp_tpu_torch.trace." + TRAVERSALS[name]["module"])
 
 
 def ray_sets(scene, width, height, torch):
@@ -137,92 +171,209 @@ def ray_sets(scene, width, height, torch):
     return sets
 
 
-def kernel_check(scene, width, height, torch):
-    """Kernel vs plain version on each ray set; returns the kernel entry."""
-    from evplp_tpu_torch.trace.traverse import traverse_cuda, traverse_plain
+def scene_bytes(name, tris, bvh) -> int:
+    """Bytes of the scene arrays a traversal kernel reads, each once."""
+    n = bvh.node_min.shape[0]
+    if name == "packet7":   # pk_bounds, pk_meta, pk_tri_rows
+        return 48 * n + 512 * bvh.pk_tri_rows.shape[0]
+    return 36 * (n + tris.v0.shape[0])   # node arrays, v0/e1/e2
 
-    nodes = scene.bvh.node_min.shape[0]
-    scene_bytes = 36 * nodes + 36 * scene.tris.v0.shape[0]
-    entry = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
-                 bytes_ms=0.0, ops_ms=0.0)
-    for name, (o, d, lo, hi, any_hit) in ray_sets(scene, width, height,
-                                                      torch).items():
-        args = (scene.tris, scene.bvh, o, d, lo, hi, any_hit)
-        k = traverse_cuda(*args)
+
+def traversal_ops(name, work) -> int:
+    """Operations of a traversal kernel's walk, from its plain version's
+    counts: box tests and ray-triangle tests (packet7: two box tests and
+    the steering per inner step)."""
+    slab = SLAB_OPS + (P7_STEER_OPS // 2 if name == "packet7" else 0)
+    return slab * work["slabs"] + TRI_OPS * work["tris"]
+
+
+def least_walk_ops(tris, bvh, o, d, lo, hi, any_hit) -> tuple:
+    """(operations, walk): the fewest operations any of the three walks
+    (their plain versions' counts) needs for these rays.  All three
+    traversal kernels compute one function, so this count, not a kernel's
+    own walk, is what bounds each of them."""
+    ops = {}
+    for name in TRAVERSALS:
         work: dict = {}
+        getattr(traversal_module(name), TRAVERSALS[name]["plain"])(
+            tris, bvh, o, d, lo, hi, any_hit, work=work)
+        ops[name] = traversal_ops(name, work)
+    walk = min(ops, key=ops.get)
+    return ops[walk], walk
+
+
+def mismatched(k, p, t_min, t_max, any_hit):
+    """Bool mask of the rays on which two traversal results (t, prim, u, v)
+    disagree.  Closest hits: hit and miss differ, or both hit with t apart
+    beyond rtol 1e-4 (on a t-tie either prim may win: coplanar
+    duplicates).  Any hit: the occlusion of a live lane differs."""
+    import torch
+    if any_hit:
+        return (t_max > t_min) & ((k[1] >= 0) != (p[1] >= 0))
+    both = (k[1] >= 0) & (p[1] >= 0)
+    return ((k[1] >= 0) != (p[1] >= 0)) | (both & ~torch.isclose(
+        k[0], p[0], rtol=1e-4, atol=0.0))
+
+
+def hits_agree(k, p, t_min, t_max, any_hit) -> tuple:
+    """(agree, max |t| error of the closest hits, prims that differ on a
+    t-tie)."""
+    bad = mismatched(k, p, t_min, t_max, any_hit)
+    if any_hit:
+        return not bool(bad.any()), 0.0, 0
+    both = (k[1] >= 0) & (p[1] >= 0)
+    return (not bool(bad.any()), float((k[0] - p[0]).abs().max()),
+            int((both & (k[1] != p[1])).sum()))
+
+
+def leaf_grazes(bvh, o, d, t_max, ref, got, rays) -> list:
+    """For each ray index, whether the disagreement is a leaf-box graze:
+    bvh_traverse's hit `ref` lies in a leaf whose box the ray misses by the
+    kernels' own slab formula (bvh_traverse tests no leaf box, packet7 and
+    packet cull leaves by theirs), and `got` found no hit or a farther one.
+    Such a ray touches a box's silhouette edge to within rounding."""
+    import torch
+    from evplp_tpu_torch.accel.bvh import ROW_TRIS
+    from evplp_tpu_torch.trace.traverse import BIG
+    leaves = torch.nonzero(bvh.node_count > 0).squeeze(1)
+    row_node = torch.full((bvh.pk_tri_rows.shape[0],), -1, dtype=torch.long,
+                          device=leaves.device)
+    row_node[bvh.pk_meta[leaves, 1].long()] = leaves
+    out = []
+    for i in rays:
+        prim = int(ref[1][i])
+        if prim < 0 or (int(got[1][i]) >= 0 and
+                        float(got[0][i]) <= float(ref[0][i])):
+            out.append(False)
+            continue
+        row = prim // ROW_TRIS
+        node = row_node[row - row % bvh.rpl]
+        inv = torch.where(torch.abs(d[i]) > 1e-20, 1.0 / d[i],
+                          torch.where(d[i] >= 0, BIG, -BIG))
+        t0 = (bvh.node_min[node] - o[i]) * inv
+        t1 = (bvh.node_max[node] - o[i]) * inv
+        t_near = torch.amax(torch.minimum(t0, t1))
+        t_far = torch.amin(torch.maximum(t0, t1))
+        enter = (t_near <= t_far) & (t_far >= 0.0) & (t_near <= t_max[i])
+        out.append(not bool(enter))
+    return out
+
+
+def kernel_check(name, sets, scene, torch) -> dict:
+    """A traversal kernel against its plain version on each ray set;
+    returns the kernel's entry, with the bytes bound and its own walk's
+    operations on each set (traversal_bounds turns them into its bound)."""
+    mod = traversal_module(name)
+    cuda_fn = getattr(mod, TRAVERSALS[name]["cuda"])
+    plain_fn = getattr(mod, TRAVERSALS[name]["plain"])
+    entry = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, bytes_ms={},
+                 ops={})
+    phase_name = "kernel_check" if name == "bvh_traverse" else \
+        f"{name}_kernel_check"
+    for set_name, (o, d, lo, hi, any_hit) in sets.items():
+        args = (scene.tris, scene.bvh, o, d, lo, hi, any_hit)
+        k = cuda_fn(*args)
+        work: dict = {}
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p = traverse_plain(*args, work=work)
+        p = plain_fn(*args, work=work)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1000.0
-        torch.cuda.synchronize()
-        if any_hit:
-            live = hi > lo
-            occ_k, occ_p = k[1][live] >= 0, p[1][live] >= 0
-            ok = bool((occ_k == occ_p).all())
-            err = float((occ_k.float() - occ_p.float()).abs().max())
-        else:
-            ok = closest_matches(k, p)
-            err = float((k[0] - p[0]).abs().max())
+        ok, err, tie_prims = hits_agree(k, p, lo, hi, any_hit)
         if not ok:
-            raise AssertionError(f"kernel disagrees with plain on {name}")
-        ms = cuda_ms(lambda: traverse_cuda(*args), reps=20)
-        bytes_ms = (RAY_BYTES * o.shape[0] + scene_bytes) / PEAK_BYTES_PER_S * 1e3
-        ops_ms = (SLAB_OPS * work["slabs"] + TRI_OPS * work["tris"]
-                  ) / PEAK_F32_PER_S * 1e3
-        phase("kernel_check", set=name, rays=o.shape[0], match=ok,
-              max_abs_err=err, kernel_ms=ms, plain_ms=plain_ms,
-              slab_tests=work["slabs"], tri_tests=work["tris"],
-              bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms)
+            raise AssertionError(f"{name} kernel disagrees with plain on "
+                                 f"{set_name}")
+        ms = cuda_ms(lambda: cuda_fn(*args), reps=20)
+        bytes_ms = (RAY_BYTES * o.shape[0] + scene_bytes(
+            name, scene.tris, scene.bvh)) / PEAK_BYTES_PER_S * 1e3
+        ops = traversal_ops(name, work)
+        phase(phase_name, set=set_name, rays=o.shape[0], match=ok,
+              max_abs_err=err, tie_prims=tie_prims, kernel_ms=ms,
+              plain_ms=plain_ms, slab_tests=work["slabs"],
+              tri_tests=work["tris"], walk_ops=ops, bytes_bound_ms=bytes_ms)
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
-        entry["bytes_ms"] += bytes_ms
-        entry["ops_ms"] += ops_ms
+        entry["bytes_ms"][set_name] = bytes_ms
+        entry["ops"][set_name] = ops
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    entry["bound_by"] = ("bytes" if entry["bytes_ms"] >= entry["ops_ms"]
-                         else "operations")
-    entry["bound_ms"] = max(entry.pop("bytes_ms"), entry.pop("ops_ms"))
     return entry
+
+
+def traversal_bounds(entries: dict):
+    """Set every traversal kernel's bound_ms from the function they share:
+    on each sample set the fewest bytes and the fewest walk operations of
+    the three kernels; the bound is the larger of the two times, summed
+    over the sets."""
+    sets = next(iter(entries.values()))["ops"]
+    least = {}
+    for s in sets:
+        walk = min(entries, key=lambda n: entries[n]["ops"][s])
+        least[s] = dict(ops=entries[walk]["ops"][s], walk=walk,
+                        bytes_ms=min(e["bytes_ms"][s]
+                                     for e in entries.values()))
+    bytes_ms = sum(x["bytes_ms"] for x in least.values())
+    ops_ms = sum(x["ops"] for x in least.values()) / PEAK_F32_PER_S * 1e3
+    for e in entries.values():
+        del e["bytes_ms"], e["ops"]
+        e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        e["bound_ms"] = max(bytes_ms, ops_ms)
+    phase("traversal_bound", per_set=least, bytes_bound_ms=bytes_ms,
+          ops_bound_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms))
 
 
 class LaunchTimer:
     """Times every traversal-kernel launch of a run with CUDA events, by
-    standing in for traverse.traverse_cuda while the run lasts."""
+    standing in for each kernel's CUDA wrapper while the run lasts; with
+    record, also keeps each launch's rays and result."""
 
-    def __init__(self, traverse_mod, torch):
-        self.mod, self.torch = traverse_mod, torch
-        self.real = traverse_mod.traverse_cuda
-        self.events = []
+    def __init__(self, torch, record: bool = False):
+        self.torch, self.record = torch, record
+        self.real = {n: getattr(traversal_module(n), TRAVERSALS[n]["cuda"])
+                     for n in TRAVERSALS}
+        self.events, self.casts = [], []
 
     def __enter__(self):
-        def timed(tris, bvh, o, d, t_min, t_max, any_hit):
-            ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = self.real(tris, bvh, o, d, t_min, t_max, any_hit)
-            ev[1].record()
-            live = (t_max > t_min).sum() if any_hit else o.shape[0]
-            scene_bytes = 36 * (bvh.node_min.shape[0] + tris.v0.shape[0])
-            self.events.append((any_hit, o.shape[0], live, scene_bytes, ev))
-            return out
-        self.mod.traverse_cuda = timed
+        def timed(name):
+            real = self.real[name]
+
+            def fn(tris, bvh, o, d, t_min, t_max, any_hit):
+                ev = [self.torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = real(tris, bvh, o, d, t_min, t_max, any_hit)
+                ev[1].record()
+                self.events.append((name, any_hit, o.shape[0],
+                                    (t_max > t_min).sum(),
+                                    scene_bytes(name, tris, bvh), ev))
+                if self.record:
+                    self.casts.append((o.clone(), d.clone(), t_min.clone(),
+                                       t_max.clone(), any_hit,
+                                       tuple(x.clone() for x in out)))
+                return out
+            return fn
+        for n in TRAVERSALS:
+            setattr(traversal_module(n), TRAVERSALS[n]["cuda"], timed(n))
         return self
 
     def __exit__(self, *exc):
-        self.mod.traverse_cuda = self.real
+        for n, real in self.real.items():
+            setattr(traversal_module(n), TRAVERSALS[n]["cuda"], real)
 
     def summary(self) -> dict:
-        """Launches, rays, live rays, kernel ms and the bytes bound (each
-        input read once, each output written once), per cast kind."""
+        """Launches, rays, live rays (t_max > t_min), kernel ms and the
+        bytes bound (each input read once, each output written once), per
+        kernel and cast kind, keyed "<kernel>.<closest|any_hit>"."""
         self.torch.cuda.synchronize()
         out = {}
-        for any_hit, rays, live, scene_bytes, (s, e) in self.events:
-            k = out.setdefault("any_hit" if any_hit else "closest",
-                               dict(launches=0, rays=0, live_rays=0, ms=0.0,
-                                    bytes_bound_ms=0.0))
+        for name, any_hit, rays, live, sbytes, (s, e) in self.events:
+            key = f"{name}.{'any_hit' if any_hit else 'closest'}"
+            k = out.setdefault(key, dict(launches=0, rays=0, live_rays=0,
+                                         ms=0.0, bytes_bound_ms=0.0))
             k["launches"] += 1
             k["rays"] += rays
             k["live_rays"] += int(live)
             k["ms"] += s.elapsed_time(e)
-            k["bytes_bound_ms"] += ((RAY_BYTES * rays + scene_bytes)
+            k["bytes_bound_ms"] += ((RAY_BYTES * rays + sbytes)
                                     / PEAK_BYTES_PER_S * 1e3)
         return out
 
@@ -390,12 +541,14 @@ def vsl_kernel_check(job, torch) -> dict:
 def pass_breakdown(job, torch, names) -> dict:
     """Mean host-clock ms of each pass `names` of the full-size frame, with
     the device synchronized around every pass (two frames: the warm-up and
-    one timed frame of run_photon_fam, with no file output)."""
+    one timed frame of the job's run loop, with no file output)."""
     import dataclasses
     from evplp_tpu_torch.integrators import photon_fam as pf
-    from evplp_tpu_torch.runtime.loop import run_photon_fam
+    from evplp_tpu_torch.runtime import loop
 
-    real = {n: getattr(pf, n) for n in names}
+    pt = job.params.technique == "pt"
+    mod = loop if pt else pf
+    real = {n: getattr(mod, n) for n in names}
     ms = dict.fromkeys(names, 0.0)
 
     def timed(name):
@@ -410,15 +563,16 @@ def pass_breakdown(job, torch, names) -> dict:
 
     params = dataclasses.replace(
         job.params, num_max_iteration=1, time_limit_ms=-1.0, use_stat=False,
-        combined_filename="", weighted_vpl_filename="",
-        weighted_photon_filename="")
+        write_every_frame=False, output_filename="", combined_filename="",
+        weighted_vpl_filename="", weighted_photon_filename="")
     for n in names:
-        setattr(pf, n, timed(n))
+        setattr(mod, n, timed(n))
     try:
-        run_photon_fam(dataclasses.replace(job, params=params))
+        run = loop.run_pt if pt else loop.run_photon_fam
+        run(dataclasses.replace(job, params=params))
     finally:
         for n in names:
-            setattr(pf, n, real[n])
+            setattr(mod, n, real[n])
     return {n: v / 2.0 for n, v in ms.items()}
 
 
@@ -432,11 +586,15 @@ def write_config(config, directory, block_update, res=None) -> str:
     cfg["arealight"]["obj"] = os.path.join(base, cfg["arealight"]["obj"])
     if res is not None:
         cfg["resX"], cfg["resY"] = res
-    cfg["photonfam"].update(block_update)
+    cfg[technique_of(cfg)].update(block_update)
     path = os.path.join(directory, os.path.basename(config))
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
+
+
+def technique_of(cfg: dict) -> str:
+    return next(k for k in ("pt", "photonfam", "lvcphotonfam") if k in cfg)
 
 
 def _small_job(config, res, block_update, device):
@@ -446,74 +604,118 @@ def _small_job(config, res, block_update, device):
                            device=device)
 
 
-def _outside(img, ref, rtol, atol) -> int:
-    """Pixels with any channel outside rtol / atol."""
+def _outside(img, ref, rtol, atol) -> list:
+    """(row, col) of the pixels with any channel outside rtol / atol."""
     import numpy as np
-    return int((~np.isclose(img, ref, rtol=rtol, atol=atol).all(axis=-1)).sum())
+    bad = ~np.isclose(img, ref, rtol=rtol, atol=atol).all(axis=-1)
+    return [tuple(int(x) for x in p) for p in np.argwhere(bad)]
+
+
+def _final_image(job):
+    """The combined image of a one-frame run of a small job."""
+    from evplp_tpu_torch.runtime.render import render_job
+    res = render_job(job)
+    return res.images["output" if job.params.technique == "pt"
+                      else "combined"]
 
 
 def reference_check() -> dict:
     """Small renders on the card against references: the Cornell goldens
-    tests/golden/{ours,ours_prog,vsl}.npz (dense ray casts) at the goldens'
-    rtol 2e-3 / atol 2e-4 (the VSL golden but for its GOLDEN_FLIPS pixels),
-    and 64x36 box_field "ours" and VSL frames (kernel ray casts, the VSL
-    sample kernel) against the same frames on the CPU (plain versions)."""
+    tests/golden/{ours,ours_prog,vsl,pt}.npz (dense ray casts) at the
+    goldens' rtol 2e-3 / atol 2e-4 (the VSL golden but for its two
+    GOLDEN_FLIPS pixels, by position), and 64x36 box_field "ours", VSL and
+    PT frames (kernel ray casts, the VSL sample kernel) against the same
+    frames on the CPU (plain versions)."""
     import numpy as np
-    from evplp_tpu_torch.runtime.loop import run_photon_fam
 
     out = {}
-    cornell = os.path.join(HERE, "configs", "cornell", "cornell_ours.json")
     common = dict(rngOffset=3, numMaxIteration=2, timeLimitMs=-1.0,
-                  frameMode="accumulate", useJitter=True, useStat=False,
-                  combinedFilename="", weightedPhotonFilename="",
-                  weightedVplFilename="")
+                  frameMode="accumulate", useJitter=True, useStat=False)
+    dumps = dict(combinedFilename="", weightedPhotonFilename="",
+                 weightedVplFilename="")
     golden = dict(common, numLightPaths=128, numVplLightPaths=8,
-                  numMaxBounces=2, radiusPercentage=0.05)
+                  numMaxBounces=2, radiusPercentage=0.05, **dumps)
     vsl = dict(common, numLightPaths=64, numVplLightPaths=64,
                numMaxBounces=2, radiusPercentage=0.0, forceVsl=True,
-               vslRadiusPercentage=0.05, misMode="one")
-    for name, block in (("ours", golden),
-                        ("ours_prog", dict(golden, misMode="geometryClamp",
-                                           DoProgressive=True,
-                                           AlphaProgressive=0.7)),
-                        ("vsl", vsl)):
-        job = _small_job(cornell, (16, 16), block, "cuda")
-        img = run_photon_fam(job).images["combined"]
+               vslRadiusPercentage=0.05, misMode="one", **dumps)
+    pt = dict(common, numSamplePerPixel=1, numMaxBounces=2,
+              outputFilename="")
+    ours_cfg = os.path.join(CORNELL, "cornell_ours.json")
+    for name, config, block in (
+            ("ours", ours_cfg, golden),
+            ("ours_prog", ours_cfg, dict(golden, misMode="geometryClamp",
+                                         DoProgressive=True,
+                                         AlphaProgressive=0.7)),
+            ("vsl", ours_cfg, vsl),
+            ("pt", os.path.join(CORNELL, "cornell_pt.json"), pt)):
+        img = _final_image(_small_job(config, (16, 16), block, "cuda"))
         ref = np.load(os.path.join(HERE, "tests", "golden",
                                    f"{name}.npz"))["img"]
         outside = _outside(img, ref, 2e-3, 2e-4)
         out[name] = float(np.abs(img - ref).max())
         out[name + "_pixels_outside"] = outside
-        if outside > GOLDEN_FLIPS[name]:
-            raise AssertionError(f"golden {name}: {outside} pixels outside "
+        if not set(outside) <= GOLDEN_FLIPS[name]:
+            raise AssertionError(f"golden {name}: pixels {outside} outside "
                                  "rtol 2e-3 / atol 2e-4")
-    small = dict(numMaxIteration=1, timeLimitMs=-1.0, useStat=False,
-                 combinedFilename="", weightedPhotonFilename="",
-                 weightedVplFilename="")
+    small = dict(numMaxIteration=1, timeLimitMs=-1.0, useStat=False)
     for name, config, block in (
-            ("box_field", CONFIG, dict(small, numLightPaths=1000)),
-            ("box_field_vsl", VSL_CONFIG, dict(small, numVplLightPaths=8))):
-        imgs = [run_photon_fam(_small_job(config, (64, 36), block, dev))
-                .images["combined"] for dev in ("cuda", "cpu")]
+            ("box_field", CONFIG, dict(small, numLightPaths=1000, **dumps)),
+            ("box_field_vsl", VSL_CONFIG, dict(small, numVplLightPaths=8,
+                                               **dumps)),
+            ("box_field_pt", PT_CONFIG, dict(small, outputFilename=""))):
+        imgs = [_final_image(_small_job(config, (64, 36), block, dev))
+                for dev in ("cuda", "cpu")]
         outside = _outside(imgs[0], imgs[1], 1e-3, 1e-4)
         out[f"{name}_64x36_cuda_vs_cpu"] = float(np.abs(imgs[0]
                                                         - imgs[1]).max())
         out[f"{name}_64x36_max"] = float(np.abs(imgs[1]).max())
         out[f"{name}_64x36_pixels_outside"] = outside
         if outside or not imgs[1].any():
-            raise AssertionError(f"{name} 64x36: {outside} pixels outside "
+            raise AssertionError(f"{name} 64x36: pixels {outside} outside "
                                  "rtol 1e-3 / atol 1e-4 (cuda vs cpu)")
     return out
 
 
-def drive_cli(config, iterations, torch) -> dict:
+def zero_counts():
+    from evplp_tpu_torch.integrators import vsl_kernel
+    for n in TRAVERSALS:
+        traversal_module(n).launches = 0
+    vsl_kernel.launches = 0
+
+
+def read_counts() -> dict:
+    from evplp_tpu_torch.integrators import vsl_kernel
+    counts = {n: traversal_module(n).launches for n in TRAVERSALS}
+    counts["vsl_sample"] = vsl_kernel.launches
+    return counts
+
+
+# the images each technique's config names, and the one that must not be
+# all zero
+IMAGE_KEYS = {"pt": ("outputFilename",),
+              "photonfam": ("combinedFilename", "weightedVplFilename",
+                            "weightedPhotonFilename")}
+
+
+def cast_totals(casts: dict, frames: int) -> dict:
+    """Per-frame launches, rays, live rays and kernel ms over all casts."""
+    return {k: sum(c[k] for c in casts.values()) / frames
+            for k in ("launches", "rays", "live_rays", "ms")}
+
+
+def main_path(label, config, iterations, torch, kind, smi, launched=(),
+              not_launched=(), nonzero=(), extra=None) -> dict:
     """Run `config` through the CLI at full size for `iterations` timed
     frames (plus the warm-up), with every kernel count set to 0 just
-    before and read just after; check and return what it produced."""
+    before and read just after.  Checks the images (shape, finite, >= 0,
+    the first of IMAGE_KEYS and those of `nonzero` not all zero), no
+    dropped splat pairs, a timed
+    frame, and that the run launched bvh_traverse and every kernel of
+    `launched` and none of `not_launched`; prints the phase line `label`,
+    with the fields `extra(run)` adds, and returns the run."""
     import numpy as np
     from evplp_tpu_torch import __main__ as cli
     from evplp_tpu_torch.integrators import vsl_kernel
-    from evplp_tpu_torch.trace import traverse
     from evplp_tpu_torch.utils.image import load_pfm
 
     t0 = time.perf_counter()
@@ -522,46 +724,226 @@ def drive_cli(config, iterations, torch) -> dict:
                                                   timeLimitMs=-1.0))
         with open(cfg_path) as f:
             cfg = json.load(f)
-        block = cfg["photonfam"]
+        tech = technique_of(cfg)
+        block = cfg[tech]
         out_dir = os.path.join(tmp, "out")
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
-        traverse.launches = 0
-        vsl_kernel.launches = 0
-        with LaunchTimer(traverse, torch) as timer, \
+        zero_counts()
+        with LaunchTimer(torch) as timer, \
                 VslLaunchTimer(vsl_kernel, torch) as vsl_timer, \
                 contextlib.redirect_stdout(buf):
             rc = cli.main([cfg_path, "--output-dir", out_dir])
-        launches = dict(bvh_traverse=traverse.launches,
-                        vsl_sample=vsl_kernel.launches)
+        launches = read_counts()
         casts = timer.summary()
         vsl_calls = vsl_timer.summary()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if rc != 0:
-            raise AssertionError(f"CLI returned {rc}")
+            raise AssertionError(f"{label}: the CLI returned {rc}")
         stats = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
         imgs = {k: load_pfm(os.path.join(out_dir, os.path.basename(
-            block[k]))) for k in ("combinedFilename", "weightedVplFilename",
-                                  "weightedPhotonFilename")}
+            block[k]))) for k in IMAGE_KEYS[tech]}
         with open(os.path.join(out_dir, os.path.basename(
                 block["statFilename"]))) as f:
             stat = json.load(f)
     for k, img in imgs.items():
         if img.shape != (cfg["resY"], cfg["resX"], 3):
-            raise AssertionError(f"{k}: shape {img.shape}")
+            raise AssertionError(f"{label} {k}: shape {img.shape}")
         if not (np.isfinite(img).all() and (img >= 0).all()):
-            raise AssertionError(f"{k}: non-finite or negative values")
-    if not imgs["combinedFilename"].any():
-        raise AssertionError("combined image is all zero")
-    if stats["dropped_splat_pairs"] != 0:
-        raise AssertionError(f"dropped {stats['dropped_splat_pairs']} pairs")
-    if launches["bvh_traverse"] == 0:
-        raise AssertionError("the main path never launched the traversal "
-                             "kernel")
-    return dict(stats=stats, stat=stat, imgs=imgs, launches=launches,
-                casts=casts, vsl_calls=vsl_calls, peak_gib=peak_gib,
-                frames=stats["numIterations"] + 1,  # + the warm-up frame
-                wall_s=time.perf_counter() - t0)
+            raise AssertionError(f"{label} {k}: non-finite or negative "
+                                 "values")
+    for k in (IMAGE_KEYS[tech][0],) + tuple(nonzero):
+        if not imgs[k].any():
+            raise AssertionError(f"{label}: {k} is all zero")
+    if stats.get("dropped_splat_pairs", 0) != 0:
+        raise AssertionError(f"{label}: dropped "
+                             f"{stats['dropped_splat_pairs']} pairs")
+    if stats["numIterations"] < 1 or stat["numIterations"] < 1:
+        raise AssertionError(f"{label}: no timed frame")
+    for k in ("bvh_traverse",) + tuple(launched):
+        if launches[k] == 0:
+            raise AssertionError(f"{label} never launched {k}: {launches}")
+    for k in not_launched:
+        if launches[k]:
+            raise AssertionError(f"{label} launched {k}: {launches}")
+    run = dict(stats=stats, stat=stat, imgs=imgs, launches=launches,
+               casts=casts, vsl_calls=vsl_calls,
+               frames=stats["numIterations"] + 1)  # + the warm-up frame
+    per_frame = cast_totals(casts, run["frames"])
+    frame_ms = stats["timeMs"] / stats["numIterations"]
+    main_img = imgs[IMAGE_KEYS[tech][0]]
+    phase(label, config=os.path.relpath(config, HERE),
+          width=main_img.shape[1], height=main_img.shape[0],
+          iterations=stats["numIterations"], time_ms=stats["timeMs"],
+          ms_per_frame=frame_ms, stat_json=stat,
+          dropped_splat_pairs=stats.get("dropped_splat_pairs"),
+          launches=launches, casts_per_frame=per_frame["launches"],
+          rays_per_frame=per_frame["rays"],
+          live_rays_per_frame=per_frame["live_rays"],
+          live_mray_per_s=per_frame["live_rays"] / frame_ms / 1e3,
+          kernel_ms_per_frame=per_frame["ms"], kernel_by_cast=casts,
+          image_means={k: float(v.mean()) for k, v in imgs.items()},
+          peak_mem_gib=peak_gib, device=kind, nvidia_smi=smi,
+          wall_s=time.perf_counter() - t0,
+          **(extra(run) if extra else {}))
+    return run
+
+
+def ours_extra(job):
+    """The "ours" frame's rays as bench.py:88-96 counts them, and its
+    Mray/s."""
+    p = job.params
+    b = p.num_max_bounces + 1
+    n_px = job.width * job.height
+    rays = n_px + p.num_light_paths * (b - 1) + n_px * p.num_vpl_light_paths * b
+
+    def extra(run):
+        frame_ms = run["stats"]["timeMs"] / run["stats"]["numIterations"]
+        return dict(bench_rays_per_frame=rays,
+                    mray_per_s=rays / frame_ms / 1e3)
+    return extra
+
+
+def vsl_extra(run) -> dict:
+    """The VSL frame's shadow segments, gated pairs, samples and the sample
+    kernel's time and bounds, per frame."""
+    frames, calls = run["frames"], run["vsl_calls"]
+    shadow = run["casts"].get("bvh_traverse.any_hit", {})
+    return dict(
+        shadow_segments_per_frame=shadow.get("rays", 0) / frames,
+        live_shadow_segments_per_frame=shadow.get("live_rays", 0) / frames,
+        gated_pairs_per_frame=calls["pairs"] / frames,
+        samples_per_frame=calls["samples"] / frames,
+        vsl_kernel_ms_per_frame=calls["ms"] / frames,
+        vsl_kernel_ops_bound_ms_per_frame=calls["ops_bound_ms"] / frames,
+        vsl_kernel_bytes_bound_ms_per_frame=calls["bytes_bound_ms"]
+        / frames)
+
+
+def pt_impls(torch) -> dict:
+    """The full-size PT frame (run_pt, one timed frame plus the warm-up,
+    same key) under each PACKET_IMPL value; each cast's inputs, recorded
+    in the packet3 run, give the same hits under the three kernels, and
+    the images agree but for at most PT_IMPL_MAX_PIXELS pixels.  The one
+    exception to the per-cast gate is a leaf-box graze (leaf_grazes),
+    checked ray by ray and counted.  Returns each kernel's launches in its
+    own run."""
+    import dataclasses
+    import numpy as np
+    from evplp_tpu_torch.runtime.loop import run_pt
+    from evplp_tpu_torch.scene.config import load_config
+    from evplp_tpu_torch.trace import intersect
+
+    job = load_config(PT_CONFIG, device="cuda")
+    scene = job.scene
+    # the JAX dispatch's fused-node rule: on a scene built with fused node
+    # rows (above 280,000 triangles) every value runs packet3
+    fused = dataclasses.replace(scene.bvh, fused_nodes=True)
+    on_this, on_fused = {}, {}
+    try:
+        for spec in TRAVERSALS.values():
+            intersect.PACKET_IMPL = spec["impl"]
+            on_this[spec["impl"]] = intersect.traversal_impl(scene.bvh)
+            on_fused[spec["impl"]] = intersect.traversal_impl(fused)
+    finally:
+        intersect.PACKET_IMPL = "packet3"
+    phase("pt_dispatch", triangles=scene.num_triangles,
+          fused_nodes=scene.bvh.fused_nodes, impl_on_this_scene=on_this,
+          impl_on_a_fused_scene=on_fused)
+    job = dataclasses.replace(job, params=dataclasses.replace(
+        job.params, num_max_iteration=1, time_limit_ms=-1.0, use_stat=False,
+        output_filename="", write_every_frame=False))
+    imgs, launches, casts, kernel_ms = {}, {}, [], {}
+    try:
+        for name, spec in TRAVERSALS.items():
+            intersect.PACKET_IMPL = spec["impl"]
+            zero_counts()
+            with LaunchTimer(torch, record=name == "bvh_traverse") as timer:
+                res = run_pt(job)
+            counts = read_counts()
+            per_frame = cast_totals(timer.summary(), 2)
+            if counts[name] == 0 or sum(counts.values()) != counts[name]:
+                raise AssertionError(f"PACKET_IMPL={spec['impl']} launched "
+                                     f"{counts}")
+            launches[name] = counts[name]
+            casts = casts or timer.casts
+            imgs[name] = res.images["output"]
+            kernel_ms[name] = per_frame["ms"]
+            phase("pt_impl", impl=spec["impl"], kernel=name,
+                  ms_per_frame=res.time_ms / res.num_iterations,
+                  kernel_ms_per_frame=per_frame["ms"], launches=counts,
+                  live_rays_per_frame=per_frame["live_rays"])
+    finally:
+        intersect.PACKET_IMPL = "packet3"
+    # ---- per cast: the three kernels on the same recorded inputs ----
+    gate = {}
+    for name in ("packet7", "packet"):
+        fn = getattr(traversal_module(name), TRAVERSALS[name]["cuda"])
+        errs, ties, grazes, bad = [], 0, [], []
+        for ci, (o, d, lo, hi, any_hit, ref) in enumerate(casts):
+            got = fn(scene.tris, scene.bvh, o, d, lo, hi, any_hit)
+            rays = torch.nonzero(mismatched(got, ref, lo, hi, any_hit)
+                                 ).squeeze(1).tolist()
+            for i, graze in zip(rays, leaf_grazes(scene.bvh, o, d, hi, ref,
+                                                  got, rays)):
+                (grazes if graze else bad).append(dict(
+                    cast=ci, ray=i, any_hit=any_hit, o=o[i].tolist(),
+                    d=d[i].tolist(), t_min=float(lo[i]), t_max=float(hi[i]),
+                    ref=[float(ref[0][i]), int(ref[1][i])],
+                    got=[float(got[0][i]), int(got[1][i])]))
+            keep = torch.ones((o.shape[0],), dtype=torch.bool,
+                              device=o.device)
+            keep[rays] = False
+            _, err, tie_prims = hits_agree(
+                tuple(x[keep] for x in got), tuple(x[keep] for x in ref),
+                lo[keep], hi[keep], any_hit)
+            errs.append(err)
+            ties += tie_prims
+        gate[name] = dict(casts=len(casts), max_abs_t_err=max(errs),
+                          tie_prims=ties, leaf_grazes=len(grazes),
+                          graze_rays=grazes[:4], disagreeing=bad[:4])
+        if bad:
+            phase("pt_impls_casts", per_cast=gate)
+            raise AssertionError(f"{name} disagrees with bvh_traverse on "
+                                 f"{len(bad)} rays of the PT casts that no "
+                                 "leaf-box graze explains")
+    images = {}
+    for name in ("packet7", "packet"):
+        outside = _outside(imgs[name], imgs["bvh_traverse"], PT_IMPL_RTOL,
+                           PT_IMPL_ATOL)
+        images[name] = dict(
+            max_abs_diff=float(np.abs(imgs[name] - imgs["bvh_traverse"])
+                               .max()),
+            pixels_outside=len(outside), positions=outside[:20])
+        if len(outside) > PT_IMPL_MAX_PIXELS:
+            raise AssertionError(f"PT image under {name}: {len(outside)} "
+                                 "pixels outside the stated tolerance")
+    phase("pt_impls", per_cast=gate, images=images,
+          image_tolerance=dict(rtol=PT_IMPL_RTOL, atol=PT_IMPL_ATOL,
+                               max_pixels=PT_IMPL_MAX_PIXELS))
+    # ---- the timed frame's operations bound, shared by the three kernels:
+    # per cast, the fewest walk operations on a strided sample of its live
+    # rays, scaled to all of them ----
+    t0 = time.perf_counter()
+    ops, walks = 0.0, []
+    for o, d, lo, hi, any_hit, _ in casts[len(casts) // 2:]:
+        live = torch.nonzero(hi > lo).squeeze(1)
+        if live.numel() == 0:
+            continue
+        idx = live[::max(1, live.numel() // FRAME_OPS_SAMPLE)][
+            :FRAME_OPS_SAMPLE]
+        cast_ops, walk = least_walk_ops(
+            scene.tris, scene.bvh, *(x[idx].contiguous() for x in
+                                     (o, d, lo, hi)), any_hit)
+        ops += cast_ops * live.numel() / idx.numel()
+        walks.append(walk)
+    bound_ms = ops / PEAK_F32_PER_S * 1e3
+    phase("pt_frame_bound", ops_per_frame=ops, ops_bound_ms=bound_ms,
+          least_walk_per_cast=walks, sample_rays=FRAME_OPS_SAMPLE,
+          kernel_ms_per_frame=kernel_ms,
+          share_of_bound={n: bound_ms / ms for n, ms in kernel_ms.items()},
+          wall_s=time.perf_counter() - t0)
+    return launches
 
 
 def main() -> int:
@@ -588,15 +970,14 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
     from evplp_tpu_torch.integrators import vsl_kernel
     from evplp_tpu_torch.native import bvh_native
-    from evplp_tpu_torch.trace import traverse
 
     def timed_build(mod):
         tb = time.perf_counter()
         mod.load_library()
         return time.perf_counter() - tb
 
-    mods = {"traverse": traverse, "vsl_sample": vsl_kernel,
-            "bvh_builder": bvh_native}
+    mods = {n: traversal_module(n) for n in TRAVERSALS}
+    mods.update(vsl_sample=vsl_kernel, bvh_builder=bvh_native)
     with ThreadPoolExecutor(len(mods)) as pool:
         futures = {k: pool.submit(timed_build, m) for k, m in mods.items()}
         build_s = {k: f.result() for k, f in futures.items()}
@@ -604,41 +985,25 @@ def main() -> int:
           python=sys.version.split()[0], device=kind, nvidia_smi=smi,
           build_s=build_s, wall_s=time.perf_counter() - t0)
 
-    # ---- 2: traversal kernel vs plain on the box_field scene ----
+    # ---- 2: the traversal kernels vs plain on the box_field scene ----
     t0 = time.perf_counter()
     from evplp_tpu_torch.scene.config import load_config
     job = load_config(CONFIG, device="cuda")
     scene = job.scene
     load_s = time.perf_counter() - t0
-    entry = kernel_check(scene, job.width, job.height, torch)
+    sets = ray_sets(scene, job.width, job.height, torch)
+    entries = {n: kernel_check(n, sets, scene, torch) for n in TRAVERSALS}
+    traversal_bounds(entries)
     phase("kernel_check_done", triangles=scene.num_triangles,
-          nodes=scene.bvh.node_min.shape[0], scene_load_s=load_s,
+          nodes=scene.bvh.node_min.shape[0], bvh_depth=scene.bvh.depth,
+          leaf_rows=scene.bvh.pk_tri_rows.shape[0], scene_load_s=load_s,
           wall_s=time.perf_counter() - t0)
+    del sets
 
     # ---- 3: the "ours" main path through the CLI at full size ----
-    run = drive_cli(CONFIG, 2, torch)
-    stats, casts = run["stats"], run["casts"]
-    if run["launches"]["vsl_sample"] != 0:
-        raise AssertionError("the ours path launched the VSL kernel")
-    p = job.params
-    b = p.num_max_bounces + 1
-    n_px = job.width * job.height
-    rays = n_px + p.num_light_paths * (b - 1) + n_px * p.num_vpl_light_paths * b
-    frame_ms = stats["timeMs"] / stats["numIterations"]
-    phase("main_path", config=os.path.relpath(CONFIG, HERE),
-          width=job.width, height=job.height, iterations=stats["numIterations"],
-          time_ms=stats["timeMs"], ms_per_frame=frame_ms,
-          mray_per_s=rays / frame_ms / 1e3, rays_per_frame=rays,
-          stat_json=run["stat"],
-          dropped_splat_pairs=stats["dropped_splat_pairs"],
-          traverse_launches=run["launches"]["bvh_traverse"],
-          kernel_by_cast=casts,
-          kernel_ms_per_frame=sum(c["ms"] for c in casts.values())
-          / run["frames"],
-          combined_mean=float(run["imgs"]["combinedFilename"].mean()),
-          peak_mem_gib=run["peak_gib"],
-          device=kind, nvidia_smi=smi, wall_s=run["wall_s"])
-    launches = dict(run["launches"])
+    launches = dict(main_path("main_path", CONFIG, 2, torch, kind, smi,
+                              not_launched=("vsl_sample",),
+                              extra=ours_extra(job))["launches"])
 
     t0 = time.perf_counter()
     passes = pass_breakdown(job, torch, (
@@ -647,6 +1012,7 @@ def main() -> int:
     phase("pass_breakdown", config=os.path.relpath(CONFIG, HERE),
           ms_per_frame=passes, sum_ms=sum(passes.values()),
           wall_s=time.perf_counter() - t0)
+    del job, scene
 
     # ---- 4: VSL kernel vs plain on one real group at full size ----
     t0 = time.perf_counter()
@@ -655,34 +1021,9 @@ def main() -> int:
     phase("vsl_kernel_check_done", wall_s=time.perf_counter() - t0)
 
     # ---- 5: the VSL main path through the CLI at full size ----
-    vrun = drive_cli(VSL_CONFIG, 1, torch)
-    vstats, vcasts, vcalls = vrun["stats"], vrun["casts"], vrun["vsl_calls"]
-    if vrun["launches"]["vsl_sample"] == 0:
-        raise AssertionError("the VSL path never launched the VSL kernel")
-    if not vrun["imgs"]["weightedVplFilename"].any():
-        raise AssertionError("the VSL image is all zero")
-    frames = vrun["frames"]
-    shadow = vcasts.get("any_hit", {})
-    phase("vsl_main_path", config=os.path.relpath(VSL_CONFIG, HERE),
-          width=vjob.width, height=vjob.height,
-          iterations=vstats["numIterations"], time_ms=vstats["timeMs"],
-          ms_per_frame=vstats["timeMs"] / vstats["numIterations"],
-          stat_json=vrun["stat"],
-          dropped_splat_pairs=vstats["dropped_splat_pairs"],
-          launches=vrun["launches"],
-          shadow_segments_per_frame=shadow.get("rays", 0) / frames,
-          live_shadow_segments_per_frame=shadow.get("live_rays", 0) / frames,
-          gated_pairs_per_frame=vcalls["pairs"] / frames,
-          samples_per_frame=vcalls["samples"] / frames,
-          vsl_kernel_ms_per_frame=vcalls["ms"] / frames,
-          vsl_kernel_ops_bound_ms_per_frame=vcalls["ops_bound_ms"] / frames,
-          vsl_kernel_bytes_bound_ms_per_frame=vcalls["bytes_bound_ms"]
-          / frames,
-          traverse_kernel_ms_per_frame=sum(c["ms"] for c in vcasts.values())
-          / frames, kernel_by_cast=vcasts,
-          weighted_vpl_mean=float(vrun["imgs"]["weightedVplFilename"].mean()),
-          peak_mem_gib=vrun["peak_gib"],
-          device=kind, nvidia_smi=smi, wall_s=vrun["wall_s"])
+    vrun = main_path("vsl_main_path", VSL_CONFIG, 1, torch, kind, smi,
+                     launched=("vsl_sample",),
+                     nonzero=("weightedVplFilename",), extra=vsl_extra)
     for k, v in vrun["launches"].items():
         launches[k] += v
 
@@ -693,28 +1034,53 @@ def main() -> int:
     phase("pass_breakdown", config=os.path.relpath(VSL_CONFIG, HERE),
           ms_per_frame=passes, sum_ms=sum(passes.values()),
           wall_s=time.perf_counter() - t0)
+    del vjob
+
+    # ---- 6: the PT main path, its passes, and the three kernels on it ----
+    run = main_path("pt_main_path", PT_CONFIG, PT_FRAMES, torch, kind, smi,
+                    not_launched=("packet7", "packet", "vsl_sample"))
+    for k, v in run["launches"].items():
+        launches[k] += v
+    t0 = time.perf_counter()
+    passes = pass_breakdown(load_config(PT_CONFIG, device="cuda"), torch, (
+        "trace_gbuffer", "render_pt_frame", "light_image"))
+    phase("pass_breakdown", config=os.path.relpath(PT_CONFIG, HERE),
+          ms_per_frame=passes, sum_ms=sum(passes.values()),
+          wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for k, v in pt_impls(torch).items():
+        launches[k] += v
+    phase("pt_impls_done", wall_s=time.perf_counter() - t0)
+
+    # ---- 7: the PM and VPL techniques through the CLI at full size ----
+    for label, config, image_key in (
+            ("pm_main_path", PM_CONFIG, "weightedPhotonFilename"),
+            ("vpl_main_path", VPL_CONFIG, "weightedVplFilename")):
+        run = main_path(label, config, 1, torch, kind, smi,
+                        not_launched=("vsl_sample",), nonzero=(image_key,))
+        for k, v in run["launches"].items():
+            launches[k] += v
 
     t0 = time.perf_counter()
     phase("reference_check", max_abs_diff=reference_check(),
           wall_s=time.perf_counter() - t0)
 
-    # ---- 6: kernels line, card line, result ----
+    # ---- 8: kernels line, card line, result ----
+    if not all(launches[k] > 0 for k in KERNELS):
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    entries["vsl_sample"] = vsl_entry
+    sources = {n: (t["source"], t["replaces"]) for n, t in TRAVERSALS.items()}
+    sources["vsl_sample"] = ("evplp_tpu_torch/csrc/vsl_sample.cu",
+                             "evplp_tpu/integrators/vsl_kernel.py:154")
     kernels = [
-        {"name": "bvh_traverse", "route": "cuda",
-         "source": "evplp_tpu_torch/csrc/traverse.cu",
-         "replaces": "evplp_tpu/trace/packet3.py:63",
-         "launches": launches["bvh_traverse"],
-         "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
-         "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
-         "bound_by": entry["bound_by"], "library_ms": None},
-        {"name": "vsl_sample_group", "route": "cuda",
-         "source": "evplp_tpu_torch/csrc/vsl_sample.cu",
-         "replaces": "evplp_tpu/integrators/vsl_kernel.py:154",
-         "launches": launches["vsl_sample"],
-         "max_abs_err": vsl_entry["max_abs_err"], "ms": vsl_entry["ms"],
-         "plain_ms": vsl_entry["plain_ms"], "bound_ms": vsl_entry["bound_ms"],
-         "bound_by": vsl_entry["bound_by"], "library_ms": None},
-    ]
+        {"name": "vsl_sample_group" if n == "vsl_sample" else n,
+         "route": "cuda", "source": sources[n][0],
+         "replaces": sources[n][1], "launches": launches[n],
+         "max_abs_err": entries[n]["max_abs_err"], "ms": entries[n]["ms"],
+         "plain_ms": entries[n]["plain_ms"],
+         "bound_ms": entries[n]["bound_ms"],
+         "bound_by": entries[n]["bound_by"], "library_ms": None}
+        for n in KERNELS]
     phase("done", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,9 +1,10 @@
 """CLI entry: python -m evplp_tpu_torch config.json [--output-dir DIR]
 [--max-wall-s S] [--device cuda|cpu]
 
-Runs a reference-format photonfam config (EVPLP, or VSL with forceVsl) on
-the card.  The CPU runs only when asked for with --device cpu; without a
-card the CLI raises.
+Runs a reference-format config on the card: a "pt" block (path tracing) or
+a "photonfam" block (EVPLP, or VSL with forceVsl); "lvcphotonfam" raises
+NotImplementedError.  The CPU runs only when asked for with --device cpu;
+without a card the CLI raises.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ def resolve_device(device: str) -> torch.device:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="evplp_tpu_torch",
-        description="EVPLP renderer on PyTorch/CUDA (photonfam)")
+        description="EVPLP renderer on PyTorch/CUDA (pt, photonfam)")
     ap.add_argument("config", help="reference-format JSON scene config")
     ap.add_argument("--output-dir", default=None,
                     help="redirect configured output files into this dir")
@@ -37,15 +38,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    from evplp_tpu_torch.runtime.loop import run_photon_fam
-    from evplp_tpu_torch.scene.config import load_config
+    from evplp_tpu_torch.runtime.render import render_config
 
-    job = load_config(args.config, device=dev)
-    if job.params.technique != "photonfam":
-        raise NotImplementedError(
-            f"technique {job.params.technique!r} is not ported yet")
-    result = run_photon_fam(job, output_dir=args.output_dir,
-                            max_wall_s=args.max_wall_s)
+    result = render_config(args.config, output_dir=args.output_dir,
+                           max_wall_s=args.max_wall_s, device=dev)
     print(json.dumps({"numIterations": result.num_iterations,
                       "timeMs": round(result.time_ms, 1),
                       **result.stats}, indent=2))

@@ -6,10 +6,14 @@ flattened in depth-first order with skip pointers so traversal is
 stackless: a ray at node i goes to i + 1 when it enters the box and to
 skip[i] when it misses the box or has tested the leaf.
 
-Scenes above `BRUTE_FORCE_MAX_TRIS` store their triangles in SLOT order:
-leaf L owns slots [L * ROW_TRIS, (L + rpl) * ROW_TRIS), padded with empty
-slots, so the traversal's slot ids are the triangle ids the shading tables
-use and both packages report the same prim ids.
+Scenes above `BRUTE_FORCE_MAX_TRIS` also get the packed node layout of the
+JAX package's packet kernels (`_pack_for_packet`): triangle rows of
+ROW_TRIS slots, per-node meta [count, leaf_row, right_child, split_axis]
+and (N, 8) bounds.  Their triangles are stored in SLOT order: leaf L owns
+slots [L * ROW_TRIS, (L + rpl) * ROW_TRIS), padded with empty slots, so
+the traversals' slot ids are the triangle ids the shading tables use and
+both packages report the same prim ids.  The JAX package's fused-node and
+packed16 forms are TPU memory layouts and are not built.
 """
 from __future__ import annotations
 
@@ -20,9 +24,14 @@ import torch
 
 from evplp_tpu_torch.native import bvh_native
 
-# triangles per slot row of a leaf (the JAX package's packed-row width)
+# triangles per slot row of a leaf (the JAX package's packed-row width), and
+# floats per slot (v0, e1, e2)
 ROW_TRIS = 14
+ROW_STRIDE = 9
 BRUTE_FORCE_MAX_TRIS = 2048
+
+NODE_KEYS = ("node_min", "node_max", "node_skip", "node_first", "node_count")
+PACKED_KEYS = ("pk_tri_rows", "pk_meta", "pk_bounds", "pk_prim_map")
 
 
 @dataclass(frozen=True)
@@ -32,38 +41,118 @@ class BVH:
     node_min/node_max: (N, 3) f32 bounds.  node_skip: (N,) i32, the node
     after this subtree (N = done).  node_first: (N,) i32, leaf: first
     triangle (slot); internal: -1.  node_count: (N,) i32, leaf: number of
-    triangles; internal: 0."""
+    triangles; internal: 0.
+
+    pk_tri_rows: (L, 128) f32, ROW_TRIS slots of (v0, e1, e2) per row, rpl
+    rows per leaf.  pk_meta: (N, 4) i32 [count, leaf_row, right_child,
+    split_axis].  pk_bounds: (N, 8) f32 [min3, max3, two meta words].
+    pk_prim_map: (L * ROW_TRIS,) i32, the builder-order triangle of each
+    slot (-1 = padding).  One-row dummies at or below BRUTE_FORCE_MAX_TRIS.
+
+    rpl: slot rows per leaf.  fused_nodes: the JAX package would build this
+    scene with fused node rows (above 280,000 triangles); its dispatch then
+    runs only the packet3 kernel.  depth: the longest root-to-leaf path in
+    edges, which bounds the traversal stacks."""
     node_min: torch.Tensor
     node_max: torch.Tensor
     node_skip: torch.Tensor
     node_first: torch.Tensor
     node_count: torch.Tensor
+    pk_tri_rows: torch.Tensor
+    pk_meta: torch.Tensor
+    pk_bounds: torch.Tensor
+    pk_prim_map: torch.Tensor
+    rpl: int = 1
+    fused_nodes: bool = False
+    depth: int = 0
 
 
-def _slot_order(first, count, perm, leaf_size: int):
-    """Slot layout of the leaves: returns (order, node_first) where order[s]
-    is the triangle in slot s (-1 = padding) and node_first is slot-based."""
+def pack_for_packet(nmin, nmax, skip, first, count, v0p, v1p, v2p,
+                    leaf_size: int):
+    """The packet kernels' layout, a copy of the JAX package's
+    `_pack_for_packet`: (tri_rows, meta, bounds, prim_map) as numpy.  The
+    v*p arrays are the triangles in the builder's leaf order."""
+    n = count.shape[0]
+    num_tris = v0p.shape[0]
     rpl = -(-leaf_size // ROW_TRIS)
+    assert count.max(initial=0) <= rpl * ROW_TRIS, \
+        f"packet layout requires leaf_size <= {rpl * ROW_TRIS}"
     leaf_nodes = np.nonzero(count > 0)[0]
-    num_rows = max(len(leaf_nodes), 1) * rpl
-    leaf_row = np.zeros(count.shape[0], np.int32)
-    leaf_row[leaf_nodes] = rpl * np.arange(len(leaf_nodes), dtype=np.int32)
-    k = np.arange(rpl * ROW_TRIS, dtype=np.int64)[None, :]
-    tri_idx = first[leaf_nodes].astype(np.int64)[:, None] + k
+    l = max(len(leaf_nodes), 1) * rpl
+
+    leaf_row_of_node = np.zeros(n, np.int32)
+    leaf_row_of_node[leaf_nodes] = rpl * np.arange(len(leaf_nodes),
+                                                   dtype=np.int32)
+
+    starts = first[leaf_nodes].astype(np.int64)
     counts = np.minimum(count[leaf_nodes], rpl * ROW_TRIS).astype(np.int64)
-    valid = (k < counts[:, None]) & (tri_idx < perm.shape[0])
-    prim_map = np.full((num_rows * ROW_TRIS,), -1, np.int64)
-    prim_map[:len(leaf_nodes) * rpl * ROW_TRIS] = np.where(
-        valid, tri_idx, -1).reshape(-1)
-    order = np.where(prim_map >= 0, perm[np.maximum(prim_map, 0)], -1)
-    node_first = np.where(count > 0, leaf_row * ROW_TRIS, -1).astype(np.int32)
-    return order, node_first
+    k = np.arange(rpl * ROW_TRIS, dtype=np.int64)[None, :]
+    tri_idx = starts[:, None] + k
+    valid = (k < counts[:, None]) & (tri_idx < num_tris)
+    tri_c = np.minimum(tri_idx, num_tris - 1)
+
+    e1p = v1p - v0p
+    e2p = v2p - v0p
+    rows = np.zeros((l, ROW_TRIS, ROW_STRIDE), np.float32)
+    nl = len(leaf_nodes) * rpl
+    for c, x in enumerate((v0p, e1p, e2p)):
+        rows[:nl, :, 3 * c:3 * c + 3] = np.where(
+            valid[..., None], x[tri_c], 0).reshape(-1, ROW_TRIS, 3)
+    rows = np.pad(rows.reshape(l, ROW_TRIS * ROW_STRIDE),
+                  ((0, 0), (0, 128 - ROW_TRIS * ROW_STRIDE)))
+    prim_map = np.full((l * ROW_TRIS,), -1, np.int32)
+    prim_map[:nl * ROW_TRIS] = np.where(valid, tri_c, -1).astype(
+        np.int32).reshape(-1)
+
+    meta = np.zeros((n, 4), np.int32)
+    meta[:, 0] = np.minimum(count, rpl * ROW_TRIS)
+    meta[:, 1] = np.where(count > 0, leaf_row_of_node, 0)
+    internal = np.nonzero(count == 0)[0]
+    right = np.zeros(n, np.int32)
+    right[internal] = skip[np.minimum(internal + 1, n - 1)]
+    meta[:, 2] = right
+
+    # split axis for near-child-first traversal: the axis along which the
+    # two children's box centres are farthest apart (left = lower side)
+    ctr = (nmin + nmax) * 0.5
+    left_id = np.minimum(internal + 1, n - 1)
+    right_id = np.minimum(right[internal], n - 1)
+    gap = ctr[right_id] - ctr[left_id]
+    meta[internal, 3] = np.argmax(gap, axis=1).astype(np.int32) \
+        if len(internal) else 0
+
+    bounds = np.zeros((n, 8), np.float32)
+    bounds[:, 0:3] = nmin
+    bounds[:, 3:6] = nmax
+    # the JAX package's fused meta words ride in lanes 6/7 (unused here)
+    w0 = (meta[:, 0] | (meta[:, 1] << 6)).astype(np.int32)
+    w1 = ((meta[:, 2] << 2) | meta[:, 3]).astype(np.int32)
+    bounds[:, 6] = w0.view(np.float32)
+    bounds[:, 7] = w1.view(np.float32)
+    return rows, meta, bounds, prim_map
+
+
+def _dummy_packed():
+    return (np.zeros((1, 128), np.float32), np.zeros((1, 4), np.int32),
+            np.zeros((1, 8), np.float32), np.full((8,), -1, np.int32))
+
+
+def tree_depth(skip: np.ndarray, count: np.ndarray) -> int:
+    """Longest root-to-leaf path, in edges, of a skip-pointer DFS tree."""
+    n = count.shape[0]
+    depth = np.zeros(n, np.int64)
+    for i in np.nonzero(count[:-1] == 0)[0]:
+        depth[i + 1] = depth[i] + 1
+        if skip[i + 1] < n:
+            depth[skip[i + 1]] = depth[i] + 1
+    return int(depth.max(initial=0))
 
 
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
-              leaf_size: int = 14):
-    """Build and flatten.  Returns (arrays, order): `arrays` holds the five
-    node arrays as numpy, and per-triangle arrays must be stored as
+              leaf_size: int = 14, fused_nodes: bool = False):
+    """Build and flatten.  Returns (arrays, order): `arrays` holds the node
+    arrays, the packed layout (dummies at or below BRUTE_FORCE_MAX_TRIS),
+    rpl and fused_nodes, and per-triangle arrays must be stored as
     X[order[i]] (order[i] == -1: an empty padding slot).  Above
     BRUTE_FORCE_MAX_TRIS the order is the slot order, else the builder's
     leaf permutation."""
@@ -71,16 +160,31 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     nmin, nmax, skip, first, count, perm = bvh_native.build(v0, v1, v2,
                                                             leaf_size)
     order = perm
-    if v0.shape[0] > BRUTE_FORCE_MAX_TRIS:
-        order, first = _slot_order(first, count, perm, leaf_size)
+    pack = v0.shape[0] > BRUTE_FORCE_MAX_TRIS
+    pk = _dummy_packed()
+    if pack:
+        pk = pack_for_packet(nmin, nmax, skip, first, count, v0[perm],
+                             v1[perm], v2[perm], leaf_size)
+        prim_map = pk[3]
+        order = np.where(prim_map >= 0, perm[np.maximum(prim_map, 0)], -1)
+        # node_first in slot space: leaf_row * ROW_TRIS
+        first = np.where(count > 0, pk[1][:, 1] * ROW_TRIS, -1)
     arrays = dict(node_min=nmin, node_max=nmax,
                   node_skip=skip.astype(np.int32),
                   node_first=first.astype(np.int32),
-                  node_count=count.astype(np.int32))
+                  node_count=count.astype(np.int32),
+                  **dict(zip(PACKED_KEYS, pk)),
+                  bvh_rpl=-(-leaf_size // ROW_TRIS) if pack else 1,
+                  bvh_fused_nodes=bool(pack and fused_nodes))
     return arrays, order
 
 
 def bvh_from_arrays(arrays: dict, device) -> BVH:
+    """BVH from numpy arrays keyed as `build_bvh` writes them."""
+    skip = np.asarray(arrays["node_skip"])
+    count = np.asarray(arrays["node_count"])
     return BVH(**{k: torch.as_tensor(np.array(arrays[k]), device=device)
-                  for k in ("node_min", "node_max", "node_skip",
-                            "node_first", "node_count")})
+                  for k in NODE_KEYS + PACKED_KEYS},
+               rpl=int(arrays["bvh_rpl"]),
+               fused_nodes=bool(arrays["bvh_fused_nodes"]),
+               depth=tree_depth(skip, count))

@@ -16,6 +16,12 @@ from evplp_tpu_torch.core.mathutil import (EPS_COS, EPS_REFL, INV_PI, dot,
                                            normalize, reflect)
 
 
+def lambert_eval_f(out, inc, n):
+    """Scalar Lambert kernel 1/pi (no hemisphere check)."""
+    del out, inc, n
+    return INV_PI
+
+
 def lambert_eval_checked(w_out, w_in, n):
     """1/pi only when both directions are above the surface, else 0."""
     above = (dot(w_out, n) > 0.0) & (dot(w_in, n) > 0.0)
@@ -137,3 +143,10 @@ def sample_combined(u_select, u2, inc, n_shading, n_geom, kd, ks, ns):
 def russian_prob_light(throughput):
     """Light-tracer RR: min(maxColor, 0.98)."""
     return torch.clamp_max(mu.max_color(throughput), 0.98)
+
+
+def russian_prob_path(throughput):
+    """Path-tracer RR: max(max(t.x, 0.98), max(t.y, t.z)), the reference's
+    0.98 floor, kept for parity."""
+    return torch.maximum(torch.clamp_min(throughput[..., 0], 0.98),
+                         torch.maximum(throughput[..., 1], throughput[..., 2]))

@@ -63,3 +63,8 @@ def light_sample(light: AreaLight, u3: torch.Tensor):
     emitted = torch.broadcast_to(light.intensity[:3] * light.area,
                                  position.shape)
     return position, normal, pdf_a, emitted
+
+
+def light_pdf_a(light: AreaLight) -> torch.Tensor:
+    """Uniform-area pdf 1/area."""
+    return 1.0 / light.area

@@ -66,6 +66,15 @@ def from_local(local_dir: torch.Tensor, z_axis: torch.Tensor) -> torch.Tensor:
             + local_dir[..., 2:3] * z_axis)
 
 
+def geometry_term(n1, n2, v12):
+    """Two-cosine geometry term with unnormalized v12:
+    max(n1.v12, 0) max(-n2.v12, 0) / |v12|^4 = cos1 cos2 / |v12|^2."""
+    cos1_u = torch.clamp_min(dot(n1, v12), 0.0)
+    cos2_u = torch.clamp_min(-dot(n2, v12), 0.0)
+    d2 = torch.clamp_min(dot(v12, v12), 1e-20)
+    return cos1_u * cos2_u / (d2 * d2)
+
+
 def square_to_power_cosine(u: torch.Tensor, exponent) -> torch.Tensor:
     """u -> direction with pdfW = (n+1)/(2pi) cos^n(theta) around +z."""
     cos_t = torch.pow(u[..., 0], 1.0 / (exponent + 1.0))

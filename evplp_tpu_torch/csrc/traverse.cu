@@ -9,9 +9,10 @@
 //   leaf node:     test its triangles in (t_min, t), go to skip[node];
 //   internal node: go to node + 1 if the ray enters the box before t,
 //                  else to skip[node].
-// Triangles are slot-ordered v0, e1, e2 rows of (T, 3) float32; the test is
-// double-sided Moller-Trumbore with |det| > 1e-9 and the sums in the order
-// ((x + y) + z).  The closest-hit and any-hit kernels are two instantiations
+// Triangles are slot-ordered v0, e1, e2 rows of (T, 3) float32; the slab
+// and double-sided Moller-Trumbore tests (|det| > 1e-9, sums in the order
+// ((x + y) + z)) are those of ray_common.cuh, shared with packet7.cu and
+// packet.cu.  The closest-hit and any-hit kernels are two instantiations
 // of one template; any hit stops at its first hit.  Lanes with
 // t_max <= t_min return at once (t = t_max, prim = -1).
 //
@@ -30,12 +31,13 @@
 // C interface: the wrapper allocates every output, launches on PyTorch's
 // current stream, and checks the returned cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "ray_common.cuh"
 
 namespace {
 
-constexpr float kTriEps = 1e-9f;
-constexpr float kBig = 3.4e38f;
+using evplp::Ray;
+using evplp::Rays;
+
 constexpr int kBlock = 256;
 
 struct Scene {
@@ -50,35 +52,16 @@ struct Scene {
   const float* __restrict__ e2;     // (T, 3)
 };
 
-struct Rays {
-  const float* __restrict__ o;      // (R, 3)
-  const float* __restrict__ d;      // (R, 3)
-  const float* __restrict__ t_min;  // (R,)
-  const float* __restrict__ t_max;  // (R,)
-  int num_rays;
-  float* __restrict__ t;            // (R,)
-  int* __restrict__ prim;           // (R,)
-  float* __restrict__ u;            // (R,)
-  float* __restrict__ v;            // (R,)
-};
-
-__device__ __forceinline__ float inv_dir(float x) {
-  return fabsf(x) > 1e-20f ? 1.0f / x : (x >= 0.0f ? kBig : -kBig);
-}
-
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
 traverse_kernel(Scene s, Rays r) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= r.num_rays) return;
-  const float ox = r.o[3 * i], oy = r.o[3 * i + 1], oz = r.o[3 * i + 2];
-  const float dx = r.d[3 * i], dy = r.d[3 * i + 1], dz = r.d[3 * i + 2];
-  const float lo = r.t_min[i];
+  const Ray ray = evplp::load_ray(r, i);
   float t = r.t_max[i];
   int prim = -1;
   float hu = 0.0f, hv = 0.0f;
-  if (t > lo) {
-    const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+  if (t > ray.lo) {
     int node = 0;
     while (node < s.num_nodes) {
       const int cnt = s.count[node];
@@ -86,24 +69,9 @@ traverse_kernel(Scene s, Rays r) {
         const int f = s.first[node];
         for (int k = 0; k < cnt; ++k) {
           const int j = 3 * (f + k);
-          const float v0x = s.v0[j], v0y = s.v0[j + 1], v0z = s.v0[j + 2];
-          const float e1x = s.e1[j], e1y = s.e1[j + 1], e1z = s.e1[j + 2];
-          const float e2x = s.e2[j], e2y = s.e2[j + 1], e2z = s.e2[j + 2];
-          const float px = dy * e2z - dz * e2y;
-          const float py = dz * e2x - dx * e2z;
-          const float pz = dx * e2y - dy * e2x;
-          const float det = (e1x * px + e1y * py) + e1z * pz;
-          const bool good = fabsf(det) > kTriEps;
-          const float inv_det = good ? 1.0f / det : 0.0f;
-          const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-          const float uu = ((tx * px + ty * py) + tz * pz) * inv_det;
-          const float qx = ty * e1z - tz * e1y;
-          const float qy = tz * e1x - tx * e1z;
-          const float qz = tx * e1y - ty * e1x;
-          const float vv = ((dx * qx + dy * qy) + dz * qz) * inv_det;
-          const float tt = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det;
-          if (good && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-              tt > lo && tt < t) {
+          float tt, uu, vv;
+          if (evplp::ray_tri(ray, s.v0 + j, s.e1 + j, s.e2 + j, t, tt, uu,
+                             vv)) {
             t = tt;
             prim = f + k;
             hu = uu;
@@ -115,16 +83,9 @@ traverse_kernel(Scene s, Rays r) {
         node = s.skip[node];
       } else {
         const int b = 3 * node;
-        const float ax = (s.nmin[b] - ox) * ix, bx = (s.nmax[b] - ox) * ix;
-        const float ay = (s.nmin[b + 1] - oy) * iy,
-                    by = (s.nmax[b + 1] - oy) * iy;
-        const float az = (s.nmin[b + 2] - oz) * iz,
-                    bz = (s.nmax[b + 2] - oz) * iz;
-        const float t_near =
-            fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
-        const float t_far =
-            fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
-        const bool enter = t_near <= t_far && t_far >= 0.0f && t_near <= t;
+        const bool enter =
+            evplp::slab_enter(ray, s.nmin[b], s.nmin[b + 1], s.nmin[b + 2],
+                              s.nmax[b], s.nmax[b + 1], s.nmax[b + 2], t);
         node = enter ? node + 1 : s.skip[node];
       }
     }

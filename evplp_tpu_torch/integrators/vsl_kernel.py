@@ -32,13 +32,12 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-import threading
 
 import torch
 
 from evplp_tpu_torch.core import brdf
 from evplp_tpu_torch.core import mathutil as mu
-from evplp_tpu_torch.native.build import build_library, check_tensor, nvcc_command
+from evplp_tpu_torch.native.build import check_tensor, load_cuda_library
 
 MAX_VSL_SAMPLES = 101    # half cone <= pi/2 -> numSamples <= 101
 MAX_GROUP = 32           # records per call: one bit each in the gate mask
@@ -49,25 +48,15 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "vsl_sample.cu")
 
 launches = 0
-_lock = threading.Lock()
-_lib = None
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library("vsl_sample", [_SRC],
-                                            nvcc_command()))
-            vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-            fn = lib.evplp_vsl_sample_group
-            fn.restype = ci
-            # pix, pixel_ids, gates, cos_half, counts, table, G, N,
-            # seed0, seed1, rec_base, out, stream
-            fn.argtypes = [vp] * 6 + [ci, ci, cu, cu, ci, vp, vp]
-            _lib = lib
-    return _lib
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    # pix, pixel_ids, gates, cos_half, counts, table, G, N, seed0, seed1,
+    # rec_base, out, stream
+    return load_cuda_library("vsl_sample", _SRC, {
+        "evplp_vsl_sample_group": [vp] * 6 + [ci, ci, cu, cu, ci, vp, vp]})
 
 
 def pack_pixels(position, normal, kd, ks, ns, wi10) -> torch.Tensor:

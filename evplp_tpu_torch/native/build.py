@@ -10,11 +10,13 @@ half-written file.
 """
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -28,12 +30,14 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "evplp_tpu_torch")
 
 
-def build_library(name: str, sources: list[str], compile_cmd: list[str]) -> str:
+def build_library(name: str, sources: list[str], compile_cmd: list[str],
+                  headers: list[str] = ()) -> str:
     """Compile `sources` with `compile_cmd + ["-o", out] + sources` unless a
-    library with the same hash exists; return its path.  Raises
-    RuntimeError with the compiler's output when the build fails."""
+    library with the same hash (of the command, the sources and the headers
+    they include) exists; return its path.  Raises RuntimeError with the
+    compiler's output when the build fails."""
     h = hashlib.sha256(" ".join(compile_cmd).encode())
-    for src in sources:
+    for src in list(sources) + sorted(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
@@ -63,6 +67,37 @@ def nvcc_command() -> list[str]:
         if cand and os.path.exists(cand):
             return [cand] + NVCC_FLAGS
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def headers_beside(source: str) -> list[str]:
+    """The CUDA headers (`*.cuh`) in the directory of `source`."""
+    src_dir = os.path.dirname(source)
+    return sorted(os.path.join(src_dir, f) for f in os.listdir(src_dir)
+                  if f.endswith(".cuh"))
+
+
+_libs: dict = {}
+_libs_lock = threading.Lock()
+
+
+def load_cuda_library(name: str, source: str, signatures: dict) -> ctypes.CDLL:
+    """Build `source` with nvcc at first use and load it once per process.
+    The headers (`*.cuh`) beside the source are hashed with it, so an edit
+    to one rebuilds every kernel.  signatures maps each exported function to
+    its ctypes argtypes; every function returns the int of
+    cudaGetLastError().  Callers on several threads may build different
+    libraries at once."""
+    with _libs_lock:
+        lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_library(name, [source], nvcc_command(),
+                                        headers_beside(source)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
+        with _libs_lock:
+            lib = _libs.setdefault(name, lib)
+    return lib
 
 
 def check_tensor(x: torch.Tensor, name: str, dtype, shape, device):

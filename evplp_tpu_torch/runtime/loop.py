@@ -1,5 +1,5 @@
-"""Headless frame loop: stop conditions, progressive schedule, dumps and
-stats (counterpart of `run_photon_fam` in the JAX package's
+"""Headless frame loops: stop conditions, progressive schedule, dumps and
+stats (counterpart of `run_photon_fam` and `run_pt` in the JAX package's
 `runtime/loop.py`, without checkpoints, profiling or multi-device runs).
 """
 from __future__ import annotations
@@ -12,9 +12,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from evplp_tpu_torch.core import rng
 from evplp_tpu_torch.core.sampling import iteration_key
+from evplp_tpu_torch.integrators.gbuffer import light_image, trace_gbuffer
 from evplp_tpu_torch.integrators.photon_fam import (
     FrameState, PhotonFamConfig, init_state, photon_fam_frame)
+from evplp_tpu_torch.integrators.pt import render_pt_frame
 from evplp_tpu_torch.runtime import film
 from evplp_tpu_torch.scene.config import RenderJob
 from evplp_tpu_torch.utils import image as im
@@ -218,3 +221,69 @@ def finalize(state: FrameState, cfg: PhotonFamConfig, iters: int,
     photon = gi_mask * photon
     return {"combined": light + vpl + photon, "weighted_vpl": light + vpl,
             "weighted_photon": photon, "light": light}
+
+
+def run_pt(job: RenderJob, output_dir: str | None = None,
+           max_wall_s: float | None = None) -> RunResult:
+    """A path-tracing run following the reference renderer's loop, on the
+    device the job's scene lives on.  Each frame draws one camera jitter
+    from fold_in(key, 999), traces the G-buffer, and averages
+    numSamplePerPixel frames of render_pt_frame with keys fold_in(key, s).
+    The first frame is a warm-up outside the clock.  Images: "output"
+    (the composite with the emitter image), "pt" and "light"."""
+    p = job.params
+    scene = job.scene
+    dev = scene.device
+    w, h = job.width, job.height
+    n = w * h
+    accumulate = p.frame_mode == "accumulate"
+
+    def frame(acc, key):
+        jitter = None
+        if p.use_jitter:
+            u = rng.uniform(rng.fold_in(key, 999), (2,))
+            jitter = (2.0 * u - 1.0) / torch.tensor(
+                [w, h], dtype=torch.float32, device=dev)
+        gbuf = trace_gbuffer(scene, w, h, jitter)
+        result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        for s in range(p.num_sample_per_pixel):
+            result += render_pt_frame(scene, gbuf, rng.fold_in(key, s),
+                                      p.num_max_bounces)
+        result /= p.num_sample_per_pixel
+        return (acc + result if accumulate else result), light_image(scene,
+                                                                     gbuf)
+
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    light = torch.zeros_like(acc)
+    frame(acc, iteration_key(0, p.rng_offset, dev))[0][0, 0].item()
+    t0 = time.perf_counter()
+    pacer = BudgetPacer(p.time_limit_ms, t0)
+    iters = 0
+    path = _out_path(p.output_filename, output_dir)
+    while iters != p.num_max_iteration:
+        acc, light = frame(acc, iteration_key(0, iters + p.rng_offset, dev))
+        iters += 1
+        if p.write_every_frame and path:
+            param = 1.0 / iters if accumulate else 1.0
+            snap = film.composite(acc, torch.zeros_like(acc), light,
+                                  vpl_scale=param, photon_scale=0.0)
+            stem, ext = os.path.splitext(path)
+            im.save(f"{stem}_{iters}{ext}", film.to_image(snap, w, h))
+        if pacer.should_stop(iters, acc[0, 0]):
+            break
+        if max_wall_s is not None and \
+                time.perf_counter() - t0 >= max_wall_s:
+            break
+
+    acc[0, 0].item()
+    time_ms = (time.perf_counter() - t0) * 1000.0
+    param = 1.0 / max(iters, 1) if accumulate else 1.0
+    final = film.composite(acc, torch.zeros_like(acc), light,
+                           vpl_scale=param, photon_scale=0.0)
+    imgs = {"output": film.to_image(final, w, h),
+            "pt": film.to_image(acc * param, w, h),
+            "light": film.to_image(light, w, h)}
+    if path:
+        im.save(path, imgs["output"])
+    _write_stat(p, time_ms, iters, output_dir)
+    return RunResult(images=imgs, num_iterations=iters, time_ms=time_ms)

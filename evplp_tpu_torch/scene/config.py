@@ -46,6 +46,10 @@ class TechniqueParams:
     stat_filename: str = ""
     write_every_frame: bool = False
     num_max_bounces: int = 3
+    # pt
+    num_sample_per_pixel: int = 1
+    output_filename: str = ""
+    # photonfam / lvcphotonfam
     num_light_paths: int = 0
     num_vpl_light_paths: int = 0
     radius_percentage: float = 0.0
@@ -89,7 +93,9 @@ def parse_technique(tech: str, j: dict) -> TechniqueParams:
     p.write_every_frame = bool(j.get("writeEveryFrame", False))
     p.num_max_bounces = int(j.get("numMaxBounces", 3))
 
-    if tech == "pt":  # path tracing is not ported yet; the CLI refuses it
+    if tech == "pt":
+        p.num_sample_per_pixel = int(j.get("numSamplePerPixel", 1))
+        p.output_filename = str(j.get("outputFilename", ""))
         return p
 
     p.num_light_paths = int(j.get("numLightPaths", 0))

@@ -13,13 +13,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from evplp_tpu_torch.accel.bvh import BVH, build_bvh, bvh_from_arrays
+from evplp_tpu_torch.accel.bvh import (BVH, NODE_KEYS, PACKED_KEYS, build_bvh,
+                                      bvh_from_arrays)
 from evplp_tpu_torch.core.light import (AreaLight, area_light_from_arrays,
                                         light_arrays)
 from evplp_tpu_torch.scene.camera import Camera
 
-# scenes above this many triangles get 42-triangle leaves (3 slot rows),
-# as the JAX package builds them
+# scenes above this many triangles get 42-triangle leaves (3 slot rows)
+# and are marked fused_nodes, as the JAX package builds them
 BIG_SCENE_TRIS = 280_000
 
 
@@ -55,13 +56,13 @@ class SceneData:
 
 
 _TRI_KEYS = ("v0", "e1", "e2", "n")
-_BVH_KEYS = ("node_min", "node_max", "node_skip", "node_first", "node_count")
 _LIGHT_KEYS = ("v0", "v1", "v2", "cdf", "area", "intensity")
 
 
 def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
     """SceneData from numpy arrays keyed as `scene_arrays` writes them:
-    v0/e1/e2/n, tri_shade, the five node_* arrays, light_<field>, and the
+    v0/e1/e2/n, tri_shade, the node_* and pk_* arrays, bvh_rpl,
+    bvh_fused_nodes, light_<field>, and the
     camera (cam_origin, cam_look_at, cam_up, cam_fovy, cam_aspect) plus
     bounding_radius and total_area."""
     def t(x):
@@ -87,7 +88,9 @@ def scene_from_arrays(arrays: dict, device="cuda") -> SceneData:
 def scene_arrays(scene: SceneData) -> dict:
     """The inverse of scene_from_arrays."""
     out = {k: getattr(scene.tris, k).cpu().numpy() for k in _TRI_KEYS}
-    out.update({k: getattr(scene.bvh, k).cpu().numpy() for k in _BVH_KEYS})
+    out.update({k: getattr(scene.bvh, k).cpu().numpy()
+                for k in NODE_KEYS + PACKED_KEYS})
+    out.update(bvh_rpl=scene.bvh.rpl, bvh_fused_nodes=scene.bvh.fused_nodes)
     out["tri_shade"] = scene.tri_shade.cpu().numpy()
     out.update({"light_" + k: getattr(scene.light, k).cpu().numpy()
                 for k in _LIGHT_KEYS})
@@ -136,7 +139,8 @@ def build_scene(positions_list, indices_list, kd_list, ks_list, ns_list,
     bounding_radius = float(np.linalg.norm(bb_max - bb_min) * 0.5)
 
     big = v0.shape[0] > BIG_SCENE_TRIS
-    node_arrays, order = build_bvh(v0, v1, v2, leaf_size=42 if big else 14)
+    node_arrays, order = build_bvh(v0, v1, v2, leaf_size=42 if big else 14,
+                                   fused_nodes=big)
     valid = order >= 0
     oi = np.maximum(order, 0)
 

@@ -15,11 +15,10 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 
 import torch
 
-from evplp_tpu_torch.native.build import build_library, check_tensor, nvcc_command
+from evplp_tpu_torch.native.build import check_tensor, load_cuda_library
 
 TRI_EPS = 1e-9          # determinant cutoff
 BIG = 3.4e38
@@ -28,36 +27,39 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "traverse.cu")
 
 launches = 0
-_lock = threading.Lock()
-_lib = None
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library("traverse", [_SRC],
-                                            nvcc_command()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for fn in (lib.evplp_traverse_closest, lib.evplp_traverse_any):
-                fn.restype = ci
-                # nodes: min, max, skip, first, count, N; tris: v0, e1, e2;
-                # rays: o, d, t_min, t_max, R; out: t, prim, u, v; stream
-                fn.argtypes = [vp] * 5 + [ci] + [vp] * 7 + [ci] + [vp] * 5
-            _lib = lib
-    return _lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # nodes: min, max, skip, first, count, N; tris: v0, e1, e2;
+    # rays: o, d, t_min, t_max, R; out: t, prim, u, v; stream
+    args = [vp] * 5 + [ci] + [vp] * 7 + [ci] + [vp] * 5
+    return load_cuda_library("traverse", _SRC, {
+        "evplp_traverse_closest": args, "evplp_traverse_any": args})
 
 
-def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
-    """Launch the CUDA kernel on PyTorch's current stream.  Returns
-    (t, prim, u, v); with any_hit, prim >= 0 marks an occluded ray and
-    t, u, v are those of the first hit found."""
-    global launches
+def check_rays_alloc_hits(o, d, t_min, t_max, what: str):
+    """Raise unless the ray batch lies on a CUDA device as (R, 3) / (R,)
+    contiguous float32; return empty (t, prim, u, v) outputs."""
     dev = o.device
     if dev.type != "cuda":
-        raise ValueError(f"the traversal kernel needs CUDA tensors, got {dev}")
-    r, n, nt = o.shape[0], bvh.node_min.shape[0], tris.v0.shape[0]
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    r = o.shape[0]
+    f32 = torch.float32
+    for x, name, shape in ((o, "o", (r, 3)), (d, "d", (r, 3)),
+                           (t_min, "t_min", (r,)), (t_max, "t_max", (r,))):
+        check_tensor(x, name, f32, shape, dev)
+    return (torch.empty((r,), dtype=f32, device=dev),
+            torch.empty((r,), dtype=torch.int32, device=dev),
+            torch.empty((r,), dtype=f32, device=dev),
+            torch.empty((r,), dtype=f32, device=dev))
+
+
+def check_skip_pointer_scene(tris, bvh, dev):
+    """Raise unless the skip-pointer node arrays and the triangle SoA lie on
+    dev with the kernels' dtypes and shapes."""
+    n, nt = bvh.node_min.shape[0], tris.v0.shape[0]
     f32, i32 = torch.float32, torch.int32
     for x, name, dt, shape in (
             (bvh.node_min, "node_min", f32, (n, 3)),
@@ -66,14 +68,19 @@ def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
             (bvh.node_first, "node_first", i32, (n,)),
             (bvh.node_count, "node_count", i32, (n,)),
             (tris.v0, "v0", f32, (nt, 3)), (tris.e1, "e1", f32, (nt, 3)),
-            (tris.e2, "e2", f32, (nt, 3)),
-            (o, "o", f32, (r, 3)), (d, "d", f32, (r, 3)),
-            (t_min, "t_min", f32, (r,)), (t_max, "t_max", f32, (r,))):
+            (tris.e2, "e2", f32, (nt, 3))):
         check_tensor(x, name, dt, shape, dev)
-    t = torch.empty((r,), dtype=f32, device=dev)
-    prim = torch.empty((r,), dtype=i32, device=dev)
-    u = torch.empty((r,), dtype=f32, device=dev)
-    v = torch.empty((r,), dtype=f32, device=dev)
+
+
+def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
+    """Launch the CUDA kernel on PyTorch's current stream.  Returns
+    (t, prim, u, v); with any_hit, prim >= 0 marks an occluded ray and
+    t, u, v are those of the first hit found."""
+    global launches
+    t, prim, u, v = check_rays_alloc_hits(o, d, t_min, t_max,
+                                          "the traversal kernel")
+    check_skip_pointer_scene(tris, bvh, o.device)
+    dev, r, n = o.device, o.shape[0], bvh.node_min.shape[0]
     if r == 0:
         return t, prim, u, v
     lib = load_library()

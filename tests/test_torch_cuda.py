@@ -1,7 +1,7 @@
 """The port's kernels on the card against their plain PyTorch versions: the
-traversal kernel on the box_field config's scene (24,010 triangles), and
-the VSL sample-loop kernel on a random group of 8 records over 16,384
-pixels made with numpy.  These tests need a CUDA card and skip elsewhere;
+three traversal kernels (traverse.cu, packet7.cu, packet.cu) on the
+box_field config's scene (24,010 triangles), and the VSL sample-loop kernel
+on a random group of 8 records over 16,384 pixels made with numpy.  These tests need a CUDA card and skip elsewhere;
 the file imports no JAX, so it runs on a machine without it:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -12,6 +12,7 @@ at rtol 1e-5 (the kernel is built with -fmad=false and rounds as the plain
 ops do); any-hit results are equal on live lanes.  The VSL kernel matches
 its plain version at rtol 2e-4, atol 2e-5, the tolerance the JAX package
 holds its own VSL kernel to."""
+import dataclasses
 import os
 
 import numpy as np
@@ -21,7 +22,7 @@ import torch
 from evplp_tpu_torch.core import mathutil as mu
 from evplp_tpu_torch.integrators import vsl_kernel
 from evplp_tpu_torch.scene.config import load_config
-from evplp_tpu_torch.trace import traverse
+from evplp_tpu_torch.trace import packet, packet7, traverse
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "configs", "box_field", "box_field_ours.json")
@@ -49,15 +50,25 @@ def _rays(scene, any_hit):
     return scene.tris, scene.bvh, o, d, t_min, t_max, any_hit
 
 
+# (module, dispatching wrapper, plain version) of each traversal kernel
+TRAVERSALS = {
+    "traverse": (traverse, traverse.traverse, traverse.traverse_plain),
+    "packet7": (packet7, packet7.packet7_trace, packet7.packet7_plain),
+    "packet": (packet, packet.packet_trace, packet.packet_plain),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(TRAVERSALS))
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_kernel_matches_plain(scene, any_hit):
+def test_kernel_matches_plain(scene, any_hit, kernel):
+    mod, wrapper, plain = TRAVERSALS[kernel]
     args = _rays(scene, any_hit)
-    before = traverse.launches
-    t_k, p_k, _, _ = traverse.traverse(*args)
+    before = mod.launches
+    t_k, p_k, _, _ = wrapper(*args)
     torch.cuda.synchronize()
-    assert traverse.launches == before + 1
-    t_p, p_p, _, _ = traverse.traverse_plain(*args)
+    assert mod.launches == before + 1
+    t_p, p_p, _, _ = plain(*args)
     p_k, p_p = p_k.cpu().numpy(), p_p.cpu().numpy()
     if any_hit:
         live = (args[5] > args[4]).cpu().numpy()
@@ -72,15 +83,34 @@ def test_kernel_matches_plain(scene, any_hit):
 
 
 @pytest.mark.cuda
-def test_wrapper_rejects_bad_inputs(scene):
+@pytest.mark.parametrize("cuda_fn", [traverse.traverse_cuda,
+                                     packet7.packet7_cuda,
+                                     packet.packet_cuda])
+def test_wrapper_rejects_bad_inputs(scene, cuda_fn):
     tris, bvh, o, d, t_min, t_max, _ = _rays(scene, False)
     with pytest.raises(TypeError):
-        traverse.traverse_cuda(tris, bvh, o.double(), d, t_min, t_max, False)
+        cuda_fn(tris, bvh, o.double(), d, t_min, t_max, False)
     with pytest.raises(ValueError, match="contiguous"):
-        traverse.traverse_cuda(tris, bvh, o.t().contiguous().t(), d, t_min,
-                               t_max, False)
+        cuda_fn(tris, bvh, o.t().contiguous().t(), d, t_min, t_max, False)
     with pytest.raises(ValueError, match="shape"):
-        traverse.traverse_cuda(tris, bvh, o, d, t_min[:-1], t_max, False)
+        cuda_fn(tris, bvh, o, d, t_min[:-1], t_max, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fn(tris, bvh, o.cpu(), d.cpu(), t_min.cpu(), t_max.cpu(), False)
+
+
+@pytest.mark.cuda
+def test_packet_wrappers_reject_bad_scenes(scene):
+    tris, bvh, o, d, t_min, t_max, _ = _rays(scene, False)
+    deep = dataclasses.replace(bvh, depth=packet.STACK_DEPTH)
+    for fn in (packet7.packet7_cuda, packet.packet_cuda):
+        with pytest.raises(ValueError, match="depth"):
+            fn(tris, deep, o, d, t_min, t_max, False)
+    unpacked = dataclasses.replace(bvh, pk_meta=bvh.pk_meta[:1])
+    with pytest.raises(ValueError, match="packed layout"):
+        packet7.packet7_cuda(tris, unpacked, o, d, t_min, t_max, False)
+    with pytest.raises(TypeError):
+        packet7.packet7_cuda(tris, dataclasses.replace(
+            bvh, pk_meta=bvh.pk_meta.long()), o, d, t_min, t_max, False)
 
 
 @pytest.fixture(scope="module")

@@ -35,18 +35,22 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 22   # every module was imported
+    assert len(names) >= 26   # every module was imported
     assert {"evplp_tpu_torch.integrators.vsl",
-            "evplp_tpu_torch.integrators.vsl_kernel"} <= set(names)
+            "evplp_tpu_torch.integrators.vsl_kernel",
+            "evplp_tpu_torch.integrators.pt",
+            "evplp_tpu_torch.runtime.render",
+            "evplp_tpu_torch.trace.packet",
+            "evplp_tpu_torch.trace.packet7"} <= set(names)
 
 
 def test_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.resolve_device("cuda")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main([os.path.join(REPO, "configs", "cornell",
-                               "cornell_ours.json")])
+    for config in ("cornell_ours.json", "cornell_pt.json"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([os.path.join(REPO, "configs", "cornell", config)])
     assert cli.resolve_device("cpu").type == "cpu"
 
 

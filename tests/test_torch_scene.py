@@ -33,7 +33,9 @@ def jax_scene_arrays(js) -> dict:
     out = dict(v0=js.tris.v0, e1=js.tris.e1, e2=js.tris.e2, n=js.tris.n,
                tri_shade=js.tri_shade, node_min=js.bvh.node_min,
                node_max=js.bvh.node_max, node_skip=js.bvh.node_skip,
-               node_first=js.bvh.node_first, node_count=js.bvh.node_count)
+               node_first=js.bvh.node_first, node_count=js.bvh.node_count,
+               pk_tri_rows=js.bvh.pk_tri_rows, pk_meta=js.bvh.pk_meta,
+               pk_bounds=js.bvh.pk_bounds, pk_prim_map=js.bvh.pk_prim_map)
     out.update({"light_" + k: getattr(js.light, k) for k in
                 ("v0", "v1", "v2", "cdf", "area", "intensity")})
     out = {k: np.asarray(v) for k, v in out.items()}
@@ -41,7 +43,8 @@ def jax_scene_arrays(js) -> dict:
                cam_look_at=np.asarray(cam.look_at),
                cam_up=np.asarray(cam.up), cam_fovy=cam.fovy,
                cam_aspect=cam.aspect, bounding_radius=js.bounding_radius,
-               total_area=js.total_area)
+               total_area=js.total_area, bvh_rpl=js.bvh.rpl,
+               bvh_fused_nodes=js.bvh.fused_nodes)
     return out
 
 

@@ -7,9 +7,14 @@ Run from a checkout of the repository on a machine with a CUDA card.  It
 builds the port's kernels from the sources (one nvcc per source, all at
 once) and holds each kernel against its plain PyTorch version on samples of
 the main paths' inputs: the three BVH traversal kernels (traverse.cu,
-packet7.cu, packet.cu) and the VSL sample kernel.  It drives these paths
-through the port's CLI at full size (1280x720), each with every kernel
-count set to 0 just before and read just after: the EVPLP "ours" photonfam
+packet7.cu, packet.cu) and the VSL sample kernel.  traverse.cu, the
+default traversal, is held to the skip-pointer walk traverse_plain exactly
+(t, prim, u, v), on the samples, on a sample of each cast kind of the
+"ours" and VSL frames and on every recorded PT cast; a ray on which they
+differ must be proven a box graze (box_grazes) and is printed.  It drives
+these paths through the port's CLI at full size (1280x720), each with
+every kernel count set to 0 just before and read just after: the EVPLP
+"ours" photonfam
 config `configs/box_field/box_field_ours.json` (300k light paths, 30 VPL
 paths, 4 records) for two frames; the VSL config
 `configs/box_field/box_field_vsl.json` (100 VSL paths, 400 records,
@@ -22,8 +27,10 @@ kernels to each other cast by cast.  It checks the outputs and the kernels
 each path launched, times each pass, and renders small references on the
 card (the Cornell goldens, and 64x36 box_field frames against the same
 frames on the CPU).  Each phase prints one line; any failure raises and
-exits non-zero.  The line before the last
-is a JSON object with one entry per kernel; the last line is
+exits non-zero.  Operations bounds count the fewest operations of four
+walks (the skip-pointer walk and the three kernels' walks) on samples of
+each cast.  The line before the last is a JSON object with one entry per
+kernel; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or without the port's package
 beside this file, it exits non-zero and prints no result.
 """
@@ -47,42 +54,59 @@ VPL_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_vpl.json")
 CORNELL = os.path.join(HERE, "configs", "cornell")
 PT_FRAMES = 3            # timed PT frames through the CLI (+ the warm-up)
 SAMPLE_RAYS = 65_536
+# camera ray of the PT frame that grazes a leaf box's silhouette (ROADMAP
+# queue 3, fault 3): #1 must report triangle 24,327 at t = 3.7943268
+FAULT3_RAY = 806_878
 # live rays of each PT cast whose walks are counted for the frame's
 # operations bound (a strided sample, scaled to the cast's live rays)
 FRAME_OPS_SAMPLE = 4096
+# rays of each sampled main-path cast on which kernel #1 is held to
+# traverse_plain (a strided sample of its live rays)
+CHECK_RAYS = 65_536
 SAMPLE_PIXELS = 65_536
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# float operations of the traversal kernels' inner steps, counted from
+# float operations of the traversal walks' inner steps, counted from
 # csrc/traverse.cu, packet.cu and packet7.cu: one slab test (6 sub, 6 mul,
 # 10 min/max, 3 compares) and one Moller-Trumbore test (53
 # add/mul/div/compare); packet7.cu's inner step adds to its two slab tests
-# 20 compares and selects of its leaf and near-child steering
+# 20 compares and selects of its leaf and near-child steering; a step of
+# traverse.cu's ordered walk is two slab tests plus 10 (the leaf box's
+# widening, the near-first compare and the selects of the push or pop)
 SLAB_OPS = 25
 TRI_OPS = 53
 P7_STEER_OPS = 20
+WALK_STEP_OPS = 2 * SLAB_OPS + 10
 # bytes a ray moves: o, d, t_min, t_max in; t, prim, u, v out
 RAY_BYTES = 48
-# the three traversal kernels: module, CUDA wrapper, plain version, the
-# PACKET_IMPL value that selects it, its source and the TPU kernel it
-# replaces
+# the three traversal kernels: module, CUDA wrapper, plain version (the
+# reference it is held to), the walk it takes (of WALKS), the PACKET_IMPL
+# value that selects it, its source and the TPU kernel it replaces
 TRAVERSALS = {
     "bvh_traverse": dict(module="traverse", cuda="traverse_cuda",
-                         plain="traverse_plain", impl="packet3",
+                         plain="traverse_plain", walk="ordered",
+                         impl="packet3",
                          source="evplp_tpu_torch/csrc/traverse.cu",
                          replaces="evplp_tpu/trace/packet3.py:63"),
     "packet7": dict(module="packet7", cuda="packet7_cuda",
-                    plain="packet7_plain", impl="packet7",
+                    plain="packet7_plain", walk="packet7", impl="packet7",
                     source="evplp_tpu_torch/csrc/packet7.cu",
                     replaces="evplp_tpu/trace/packet7.py:48"),
     "packet": dict(module="packet", cuda="packet_cuda",
-                   plain="packet_plain", impl="packet",
+                   plain="packet_plain", walk="packet", impl="packet",
                    source="evplp_tpu_torch/csrc/packet.cu",
                    replaces="evplp_tpu/trace/packet.py:53"),
 }
+# the four walks that compute the traversal function, each as (module,
+# plain version that takes its steps and counts them): the JAX package's
+# skip-pointer walk and the three kernels' walks
+WALKS = {"skip_pointer": ("traverse", "traverse_plain"),
+         "ordered": ("traverse", "walk_plain"),
+         "packet7": ("packet7", "packet7_plain"),
+         "packet": ("packet", "packet_plain")}
 KERNELS = tuple(TRAVERSALS) + ("vsl_sample",)
 # the PT frames under the three traversal kernels: pixels whose channels
 # differ beyond rtol 1e-4 / atol 1e-5, at most this many (a t-tie may pick
@@ -122,10 +146,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def traversal_module(name):
+def traversal_module_named(module):
     import importlib
-    return importlib.import_module(
-        "evplp_tpu_torch.trace." + TRAVERSALS[name]["module"])
+    return importlib.import_module("evplp_tpu_torch.trace." + module)
+
+
+def traversal_module(name):
+    return traversal_module_named(TRAVERSALS[name]["module"])
 
 
 def ray_sets(scene, width, height, torch):
@@ -173,31 +200,41 @@ def ray_sets(scene, width, height, torch):
 
 def scene_bytes(name, tris, bvh) -> int:
     """Bytes of the scene arrays a traversal kernel reads, each once."""
+    if name == "bvh_traverse":   # 64-byte node and 48-byte triangle records
+        return 64 * bvh.walk_nodes.shape[0] + 48 * bvh.walk_tris.shape[0]
     n = bvh.node_min.shape[0]
     if name == "packet7":   # pk_bounds, pk_meta, pk_tri_rows
         return 48 * n + 512 * bvh.pk_tri_rows.shape[0]
     return 36 * (n + tris.v0.shape[0])   # node arrays, v0/e1/e2
 
 
-def traversal_ops(name, work) -> int:
-    """Operations of a traversal kernel's walk, from its plain version's
-    counts: box tests and ray-triangle tests (packet7: two box tests and
-    the steering per inner step)."""
-    slab = SLAB_OPS + (P7_STEER_OPS // 2 if name == "packet7" else 0)
+def walk_ops(walk, work) -> int:
+    """Operations of a walk, from its plain version's counts: box tests and
+    ray-triangle tests (packet7: two box tests and the steering per inner
+    step; ordered: WALK_STEP_OPS per step)."""
+    if walk == "ordered":
+        return WALK_STEP_OPS * work["steps"] + TRI_OPS * work["tris"]
+    slab = SLAB_OPS + (P7_STEER_OPS // 2 if walk == "packet7" else 0)
     return slab * work["slabs"] + TRI_OPS * work["tris"]
 
 
+def run_walk(walk, tris, bvh, o, d, lo, hi, any_hit) -> tuple:
+    """(result, operations, counts) of a walk's plain version on these
+    rays; counts are its box tests ("slabs", or "steps" of two) and
+    ray-triangle tests ("tris")."""
+    mod, fn = WALKS[walk]
+    work: dict = {}
+    out = getattr(traversal_module_named(mod), fn)(tris, bvh, o, d, lo, hi,
+                                                   any_hit, work=work)
+    return out, walk_ops(walk, work), work
+
+
 def least_walk_ops(tris, bvh, o, d, lo, hi, any_hit) -> tuple:
-    """(operations, walk): the fewest operations any of the three walks
-    (their plain versions' counts) needs for these rays.  All three
-    traversal kernels compute one function, so this count, not a kernel's
-    own walk, is what bounds each of them."""
-    ops = {}
-    for name in TRAVERSALS:
-        work: dict = {}
-        getattr(traversal_module(name), TRAVERSALS[name]["plain"])(
-            tris, bvh, o, d, lo, hi, any_hit, work=work)
-        ops[name] = traversal_ops(name, work)
+    """(operations, walk): the fewest operations any of the four walks
+    needs for these rays.  All of them compute one function, so this
+    count, not a kernel's own walk, is what bounds each traversal kernel."""
+    ops = {w: run_walk(w, tris, bvh, o, d, lo, hi, any_hit)[1]
+           for w in WALKS}
     walk = min(ops, key=ops.get)
     return ops[walk], walk
 
@@ -215,6 +252,17 @@ def mismatched(k, p, t_min, t_max, any_hit):
         k[0], p[0], rtol=1e-4, atol=0.0))
 
 
+def differs(k, p, t_min, t_max, any_hit):
+    """Bool mask of the rays on which two results of the traversal
+    function differ at all: t, prim, u or v (closest hits), the occlusion
+    of a live lane (any hit, whose t and prim are those of whichever hit
+    was found first)."""
+    if any_hit:
+        return (t_max > t_min) & ((k[1] >= 0) != (p[1] >= 0))
+    return ((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])
+            | (k[3] != p[3]))
+
+
 def hits_agree(k, p, t_min, t_max, any_hit) -> tuple:
     """(agree, max |t| error of the closest hits, prims that differ on a
     t-tie)."""
@@ -226,46 +274,132 @@ def hits_agree(k, p, t_min, t_max, any_hit) -> tuple:
             int((both & (k[1] != p[1])).sum()))
 
 
-def leaf_grazes(bvh, o, d, t_max, ref, got, rays) -> list:
-    """For each ray index, whether the disagreement is a leaf-box graze:
-    bvh_traverse's hit `ref` lies in a leaf whose box the ray misses by the
-    kernels' own slab formula (bvh_traverse tests no leaf box, packet7 and
-    packet cull leaves by theirs), and `got` found no hit or a farther one.
-    Such a ray touches a box's silhouette edge to within rounding."""
+def box_grazes(bvh, o, d, a, b, rays, leaf_a, leaf_b, any_hit) -> list:
+    """For each ray index on which results a and b (t, prim, u, v)
+    disagree: the proof that the disagreement is a box graze, or None.
+
+    The better of the two hits (the least (t, slot); for any hit, the one
+    that hit) lies in a leaf.  The walk that missed it must reject one of
+    the boxes enclosing that triangle, the root's down to the leaf's, by its
+    own test at its own final t (a walk that rejects a box at some t
+    rejects it at every smaller t): the exact slab test for internal
+    boxes, and for the leaf box leaf_a / leaf_b, None for no test (the
+    skip-pointer walk), else the factors (far, t) by which its test widens
+    t_far and t ((1.0, 1.0): exact).  Such a box holds a triangle the ray
+    hits at t* <= that t, so only rounding rejects it: the ray grazes the
+    box's silhouette.  The proof names the ray, the better hit's prim and
+    t, the box's node and its depth above the leaf."""
     import torch
-    from evplp_tpu_torch.accel.bvh import ROW_TRIS
     from evplp_tpu_torch.trace.traverse import BIG
-    leaves = torch.nonzero(bvh.node_count > 0).squeeze(1)
-    row_node = torch.full((bvh.pk_tri_rows.shape[0],), -1, dtype=torch.long,
-                          device=leaves.device)
-    row_node[bvh.pk_meta[leaves, 1].long()] = leaves
+    if not rays:
+        return []
+    count = bvh.node_count.cpu().numpy()
+    first = bvh.node_first.cpu().numpy()
+    skip = bvh.node_skip.cpu().numpy()
+    n = count.shape[0]
+    parent = [-1] * n
+    leaf_of = {}
+    for i in range(n):
+        if count[i] == 0:
+            parent[i + 1] = i
+            if skip[i + 1] < n:
+                parent[skip[i + 1]] = i
+        else:
+            for s in range(first[i], first[i] + count[i]):
+                leaf_of[s] = i
+    nmin, nmax = bvh.node_min.cpu(), bvh.node_max.cpu()
+    sel = torch.tensor(rays, dtype=torch.long, device=o.device)
+    oo, dd = o[sel].cpu(), d[sel].cpu()
+    ra = [x[sel].cpu() for x in a]
+    rb = [x[sel].cpu() for x in b]
     out = []
-    for i in rays:
-        prim = int(ref[1][i])
-        if prim < 0 or (int(got[1][i]) >= 0 and
-                        float(got[0][i]) <= float(ref[0][i])):
-            out.append(False)
-            continue
-        row = prim // ROW_TRIS
-        node = row_node[row - row % bvh.rpl]
-        inv = torch.where(torch.abs(d[i]) > 1e-20, 1.0 / d[i],
-                          torch.where(d[i] >= 0, BIG, -BIG))
-        t0 = (bvh.node_min[node] - o[i]) * inv
-        t1 = (bvh.node_max[node] - o[i]) * inv
-        t_near = torch.amax(torch.minimum(t0, t1))
-        t_far = torch.amin(torch.maximum(t0, t1))
-        enter = (t_near <= t_far) & (t_far >= 0.0) & (t_near <= t_max[i])
-        out.append(not bool(enter))
+    for j, ray in enumerate(rays):
+        ta, pa, tb, pb = (float(ra[0][j]), int(ra[1][j]), float(rb[0][j]),
+                          int(rb[1][j]))
+        if any_hit:
+            a_better = pa >= 0
+        else:
+            a_better = pb < 0 or (pa >= 0 and (ta, pa) < (tb, pb))
+        prim, t_best = (pa, ta) if a_better else (pb, tb)
+        t_w = tb if a_better else ta
+        leaf_w = leaf_b if a_better else leaf_a
+        proof = None
+        if prim >= 0:
+            di = dd[j]
+            inv = torch.where(torch.abs(di) > 1e-20, 1.0 / di,
+                              torch.where(di >= 0, BIG, -BIG))
+            node, depth = leaf_of[prim], 0
+            while node >= 0:
+                t0 = (nmin[node] - oo[j]) * inv
+                t1 = (nmax[node] - oo[j]) * inv
+                near = torch.amax(torch.minimum(t0, t1))
+                far = torch.amin(torch.maximum(t0, t1))
+                tw = torch.tensor(t_w, dtype=torch.float32)
+                if depth > 0:
+                    enter = (near <= far) & (far >= 0.0) & (near <= tw)
+                elif leaf_w is None:
+                    enter = True
+                else:
+                    enter = ((near <= far * leaf_w[0]) & (far >= 0.0)
+                             & (near <= tw * leaf_w[1]))
+                if not bool(enter):
+                    proof = dict(ray=ray, prim=prim, t=t_best, missed_by_t=t_w,
+                                 node=node, above_leaf=depth,
+                                 t_near=float(near), t_far=float(far))
+                    break
+                node, depth = parent[node], depth + 1
+        out.append(proof)
+    return out
+
+
+def walk1_leaf_test() -> tuple:
+    """Kernel #1's leaf-box test, as box_grazes takes it."""
+    from evplp_tpu_torch.trace.traverse import LEAF_WIDEN, LEAF_WIDEN_T
+    return LEAF_WIDEN, LEAF_WIDEN_T
+
+
+def exact_check(label, bvh, o, d, lo, hi, any_hit, k, p) -> dict:
+    """Hold kernel #1's result k to traverse_plain's p on every ray: equal
+    t (bit for bit), prim, u and v, or for any hit equal occlusion.  Rays
+    that differ must be proven box grazes (box_grazes), which are counted
+    and printed; a tie prim (equal t, another prim) that is not a graze
+    fails like any other difference.  Returns the counts."""
+    import torch
+    rays = torch.nonzero(differs(k, p, lo, hi, any_hit)).squeeze(1).tolist()
+    proofs = box_grazes(bvh, o, d, k, p, rays, walk1_leaf_test(), None,
+                        any_hit)
+    grazes = [x for x in proofs if x is not None]
+    bad = [i for i, x in zip(rays, proofs) if x is None]
+    ties = sum(1 for i in bad if not any_hit and float(k[0][i]) == float(
+        p[0][i]) and int(k[1][i]) != int(p[1][i]))
+    both = (k[1] >= 0) & (p[1] >= 0)
+    out = dict(rays=o.shape[0], any_hit=any_hit, differing=len(rays),
+               grazes=len(grazes), tie_prims=ties, unexplained=len(bad),
+               max_abs_err=0.0 if any_hit or not bool(both.any()) else
+               float((k[0] - p[0])[both].abs().max()))
+    for g in grazes:
+        phase("box_graze", check=label, **g)
+    if bad:
+        i = bad[:4]
+        raise AssertionError(
+            f"{label}: kernel #1 differs from traverse_plain on {len(bad)} "
+            f"rays that no box graze explains ({ties} tie prims): rays {i}, "
+            f"kernel {[(float(k[0][j]), int(k[1][j])) for j in i]}, "
+            f"plain {[(float(p[0][j]), int(p[1][j])) for j in i]}")
     return out
 
 
 def kernel_check(name, sets, scene, torch) -> dict:
-    """A traversal kernel against its plain version on each ray set;
-    returns the kernel's entry, with the bytes bound and its own walk's
-    operations on each set (traversal_bounds turns them into its bound)."""
+    """A traversal kernel against its plain version on each ray set (#1
+    exactly, by exact_check, and equal to its own walk's plain version;
+    #2 and #3 by hits_agree); returns the kernel's entry, with the bytes
+    bound and the operations of each walk it ran on each set
+    (traversal_bounds turns them into its bound)."""
     mod = traversal_module(name)
-    cuda_fn = getattr(mod, TRAVERSALS[name]["cuda"])
-    plain_fn = getattr(mod, TRAVERSALS[name]["plain"])
+    spec = TRAVERSALS[name]
+    cuda_fn = getattr(mod, spec["cuda"])
+    ref_walk = next(w for w, (m, f) in WALKS.items()
+                    if (m, f) == (spec["module"], spec["plain"]))
     entry = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, bytes_ms={},
                  ops={})
     phase_name = "kernel_check" if name == "bvh_traverse" else \
@@ -273,24 +407,34 @@ def kernel_check(name, sets, scene, torch) -> dict:
     for set_name, (o, d, lo, hi, any_hit) in sets.items():
         args = (scene.tris, scene.bvh, o, d, lo, hi, any_hit)
         k = cuda_fn(*args)
-        work: dict = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p = plain_fn(*args, work=work)
+        p, ref_ops, ref_work = run_walk(ref_walk, *args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1000.0
-        ok, err, tie_prims = hits_agree(k, p, lo, hi, any_hit)
-        if not ok:
-            raise AssertionError(f"{name} kernel disagrees with plain on "
-                                 f"{set_name}")
+        ops, counts = {ref_walk: ref_ops}, {ref_walk: ref_work}
+        if name == "bvh_traverse":
+            w, ops[spec["walk"]], counts[spec["walk"]] = run_walk(
+                spec["walk"], *args)
+            if bool(differs(k, w, lo, hi, False).any()):
+                raise AssertionError(f"{name} kernel differs from walk_plain "
+                                     f"on {set_name}")
+            check = exact_check(f"{phase_name}/{set_name}", scene.bvh, o, d,
+                                lo, hi, any_hit, k, p)
+            err, tie_prims = check["max_abs_err"], check["tie_prims"]
+        else:
+            ok, err, tie_prims = hits_agree(k, p, lo, hi, any_hit)
+            check = dict(rays=o.shape[0], match=ok)
+            if not ok:
+                raise AssertionError(f"{name} kernel disagrees with plain "
+                                     f"on {set_name}")
         ms = cuda_ms(lambda: cuda_fn(*args), reps=20)
         bytes_ms = (RAY_BYTES * o.shape[0] + scene_bytes(
             name, scene.tris, scene.bvh)) / PEAK_BYTES_PER_S * 1e3
-        ops = traversal_ops(name, work)
-        phase(phase_name, set=set_name, rays=o.shape[0], match=ok,
-              max_abs_err=err, tie_prims=tie_prims, kernel_ms=ms,
-              plain_ms=plain_ms, slab_tests=work["slabs"],
-              tri_tests=work["tris"], walk_ops=ops, bytes_bound_ms=bytes_ms)
+        check.update(max_abs_err=err, tie_prims=tie_prims)
+        phase(phase_name, set=set_name, **check, kernel_ms=ms,
+              plain_ms=plain_ms, walk_ops=ops, walk_counts=counts,
+              bytes_bound_ms=bytes_ms)
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
         entry["bytes_ms"][set_name] = bytes_ms
@@ -301,14 +445,16 @@ def kernel_check(name, sets, scene, torch) -> dict:
 
 def traversal_bounds(entries: dict):
     """Set every traversal kernel's bound_ms from the function they share:
-    on each sample set the fewest bytes and the fewest walk operations of
-    the three kernels; the bound is the larger of the two times, summed
-    over the sets."""
+    on each sample set the fewest bytes of the three kernels and the fewest
+    operations of the four walks; the bound is the larger of the two
+    times, summed over the sets."""
     sets = next(iter(entries.values()))["ops"]
     least = {}
     for s in sets:
-        walk = min(entries, key=lambda n: entries[n]["ops"][s])
-        least[s] = dict(ops=entries[walk]["ops"][s], walk=walk,
+        walks = {w: n for e in entries.values()
+                 for w, n in e["ops"][s].items()}
+        walk = min(walks, key=walks.get)
+        least[s] = dict(ops=walks[walk], walk=walk,
                         bytes_ms=min(e["bytes_ms"][s]
                                      for e in entries.values()))
     bytes_ms = sum(x["bytes_ms"] for x in least.values())
@@ -323,14 +469,17 @@ def traversal_bounds(entries: dict):
 
 class LaunchTimer:
     """Times every traversal-kernel launch of a run with CUDA events, by
-    standing in for each kernel's CUDA wrapper while the run lasts; with
-    record, also keeps each launch's rays and result."""
+    standing in for each kernel's CUDA wrapper while the run lasts.  With
+    record, also keeps each launch's rays and result; with kind (a function
+    of the kernel's name, any_hit and the ray count that names the cast's
+    kind, or None), keeps, for the first launch of each kind, a strided
+    sample of CHECK_RAYS of its live rays with their results."""
 
-    def __init__(self, torch, record: bool = False):
-        self.torch, self.record = torch, record
+    def __init__(self, torch, record: bool = False, kind=None):
+        self.torch, self.record, self.kind = torch, record, kind
         self.real = {n: getattr(traversal_module(n), TRAVERSALS[n]["cuda"])
                      for n in TRAVERSALS}
-        self.events, self.casts = [], []
+        self.events, self.casts, self.samples = [], [], {}
 
     def __enter__(self):
         def timed(name):
@@ -342,13 +491,22 @@ class LaunchTimer:
                 ev[0].record()
                 out = real(tris, bvh, o, d, t_min, t_max, any_hit)
                 ev[1].record()
+                kind = self.kind and self.kind(name, any_hit, o.shape[0])
                 self.events.append((name, any_hit, o.shape[0],
                                     (t_max > t_min).sum(),
-                                    scene_bytes(name, tris, bvh), ev))
+                                    scene_bytes(name, tris, bvh), kind, ev))
                 if self.record:
                     self.casts.append((o.clone(), d.clone(), t_min.clone(),
                                        t_max.clone(), any_hit,
                                        tuple(x.clone() for x in out)))
+                if kind and kind not in self.samples:
+                    live = self.torch.nonzero(t_max > t_min).squeeze(1)
+                    idx = live[::max(1, live.numel() // CHECK_RAYS)][
+                        :CHECK_RAYS]
+                    self.samples[kind] = (
+                        tuple(x[idx].contiguous() for x in
+                              (o, d, t_min, t_max)) + (any_hit,)
+                        + (tuple(x[idx] for x in out),))
                 return out
             return fn
         for n in TRAVERSALS:
@@ -365,7 +523,7 @@ class LaunchTimer:
         kernel and cast kind, keyed "<kernel>.<closest|any_hit>"."""
         self.torch.cuda.synchronize()
         out = {}
-        for name, any_hit, rays, live, sbytes, (s, e) in self.events:
+        for name, any_hit, rays, live, sbytes, _, (s, e) in self.events:
             key = f"{name}.{'any_hit' if any_hit else 'closest'}"
             k = out.setdefault(key, dict(launches=0, rays=0, live_rays=0,
                                          ms=0.0, bytes_bound_ms=0.0))
@@ -376,6 +534,65 @@ class LaunchTimer:
             k["bytes_bound_ms"] += ((RAY_BYTES * rays + sbytes)
                                     / PEAK_BYTES_PER_S * 1e3)
         return out
+
+    def live_by_kind(self) -> dict:
+        """Live rays of all launches, per cast kind."""
+        out: dict = {}
+        for *_, live, _, kind, _ in self.events:
+            if kind:
+                out[kind] = out.get(kind, 0) + int(live)
+        return out
+
+
+def cast_kind(width, height):
+    """The cast kinds of a photonfam frame under kernel #1: the G-buffer
+    (one closest-hit ray a pixel), light bounces (the other closest-hit
+    casts) and shadow segments (any hit: VPL chunks, VSL groups)."""
+    def kind(name, any_hit, rays):
+        if name != "bvh_traverse":
+            return None
+        if any_hit:
+            return "shadow"
+        return "gbuffer" if rays == width * height else "bounce"
+    return kind
+
+
+def sampled_casts_check(label, run, scene, torch) -> dict:
+    """Kernel #1 against traverse_plain on the sampled rays of each cast
+    kind of a main path (exact_check), and the frame's operations bound:
+    per kind the fewest walk operations on FRAME_OPS_SAMPLE of the sampled
+    live rays, scaled to the kind's live rays per frame."""
+    from evplp_tpu_torch.trace.traverse import traverse_plain
+    t0 = time.perf_counter()
+    checks, kinds, ops = {}, {}, 0.0
+    for kind, (o, d, lo, hi, any_hit, k) in run["samples"].items():
+        p = traverse_plain(scene.tris, scene.bvh, o, d, lo, hi, any_hit)
+        checks[kind] = exact_check(f"{label}/{kind}", scene.bvh, o, d, lo,
+                                   hi, any_hit, k, p)
+        idx = torch.arange(0, o.shape[0], max(1, o.shape[0]
+                                              // FRAME_OPS_SAMPLE),
+                           device=o.device)[:FRAME_OPS_SAMPLE]
+        n_ops, walk = least_walk_ops(scene.tris, scene.bvh, *(
+            x[idx].contiguous() for x in (o, d, lo, hi)), any_hit)
+        live = run["live_by_kind"][kind] / run["frames"]
+        kinds[kind] = dict(live_rays_per_frame=live, walk=walk,
+                           ops_per_ray=n_ops / idx.numel())
+        ops += n_ops * live / idx.numel()
+    bound_ms = ops / PEAK_F32_PER_S * 1e3
+    kernel_ms = run["casts"].get("bvh_traverse.closest", {}).get("ms", 0.0)
+    kernel_ms += run["casts"].get("bvh_traverse.any_hit", {}).get("ms", 0.0)
+    kernel_ms /= run["frames"]
+    bytes_ms = sum(c["bytes_bound_ms"] for k, c in run["casts"].items()
+                   if k.startswith("bvh_traverse.")) / run["frames"]
+    out = dict(checks=checks, per_kind=kinds, sample_rays=FRAME_OPS_SAMPLE,
+               ops_per_frame=ops, ops_bound_ms=bound_ms,
+               bytes_bound_ms=bytes_ms, bound_ms=max(bound_ms, bytes_ms),
+               bound_by="bytes" if bytes_ms >= bound_ms else "operations",
+               kernel_ms_per_frame=kernel_ms,
+               share_of_bound=max(bound_ms, bytes_ms) / kernel_ms,
+               wall_s=time.perf_counter() - t0)
+    phase(label, **out)
+    return out
 
 
 def vsl_work(gates, counts, torch):
@@ -704,7 +921,8 @@ def cast_totals(casts: dict, frames: int) -> dict:
 
 
 def main_path(label, config, iterations, torch, kind, smi, launched=(),
-              not_launched=(), nonzero=(), extra=None) -> dict:
+              not_launched=(), nonzero=(), extra=None,
+              sample_casts=False) -> dict:
     """Run `config` through the CLI at full size for `iterations` timed
     frames (plus the warm-up), with every kernel count set to 0 just
     before and read just after.  Checks the images (shape, finite, >= 0,
@@ -712,7 +930,9 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
     dropped splat pairs, a timed
     frame, and that the run launched bvh_traverse and every kernel of
     `launched` and none of `not_launched`; prints the phase line `label`,
-    with the fields `extra(run)` adds, and returns the run."""
+    with the fields `extra(run)` adds, and returns the run.  With
+    sample_casts, the run keeps a sample of each cast kind of kernel #1
+    (LaunchTimer, cast_kind)."""
     import numpy as np
     from evplp_tpu_torch import __main__ as cli
     from evplp_tpu_torch.integrators import vsl_kernel
@@ -730,7 +950,8 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
         zero_counts()
-        with LaunchTimer(torch) as timer, \
+        kinds = cast_kind(cfg["resX"], cfg["resY"]) if sample_casts else None
+        with LaunchTimer(torch, kind=kinds) as timer, \
                 VslLaunchTimer(vsl_kernel, torch) as vsl_timer, \
                 contextlib.redirect_stdout(buf):
             rc = cli.main([cfg_path, "--output-dir", out_dir])
@@ -767,7 +988,8 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
         if launches[k]:
             raise AssertionError(f"{label} launched {k}: {launches}")
     run = dict(stats=stats, stat=stat, imgs=imgs, launches=launches,
-               casts=casts, vsl_calls=vsl_calls,
+               casts=casts, vsl_calls=vsl_calls, samples=timer.samples,
+               live_by_kind=timer.live_by_kind(),
                frames=stats["numIterations"] + 1)  # + the warm-up frame
     per_frame = cast_totals(casts, run["frames"])
     frame_ms = stats["timeMs"] / stats["numIterations"]
@@ -825,9 +1047,10 @@ def pt_impls(torch) -> dict:
     same key) under each PACKET_IMPL value; each cast's inputs, recorded
     in the packet3 run, give the same hits under the three kernels, and
     the images agree but for at most PT_IMPL_MAX_PIXELS pixels.  The one
-    exception to the per-cast gate is a leaf-box graze (leaf_grazes),
-    checked ray by ray and counted.  Returns each kernel's launches in its
-    own run."""
+    exception to the per-cast gate is a box graze (box_grazes), checked
+    ray by ray and counted.  Kernel #1 is held to traverse_plain on a
+    sample of every recorded cast (exact_check).  Returns each kernel's
+    launches in its own run."""
     import dataclasses
     import numpy as np
     from evplp_tpu_torch.runtime.loop import run_pt
@@ -875,7 +1098,32 @@ def pt_impls(torch) -> dict:
                   live_rays_per_frame=per_frame["live_rays"])
     finally:
         intersect.PACKET_IMPL = "packet3"
-    # ---- per cast: the three kernels on the same recorded inputs ----
+    # ---- per cast: #1 against traverse_plain on a sample of each cast
+    # (with ray FAULT3_RAY of the closest-hit casts), then #2 and #3 on the
+    # same recorded inputs ----
+    from evplp_tpu_torch.trace.traverse import traverse_plain
+    exact = []
+    for ci, (o, d, lo, hi, any_hit, ref) in enumerate(casts):
+        live = torch.nonzero(hi > lo).squeeze(1)
+        idx = live[::max(1, live.numel() // CHECK_RAYS)][:CHECK_RAYS]
+        if not any_hit and o.shape[0] > FAULT3_RAY:
+            idx = torch.unique(torch.cat([idx, torch.tensor(
+                [FAULT3_RAY], device=idx.device)]))
+        sub = tuple(x[idx].contiguous() for x in (o, d, lo, hi))
+        p = traverse_plain(scene.tris, scene.bvh, *sub, any_hit)
+        exact.append(exact_check(f"pt_cast_{ci}", scene.bvh, *sub, any_hit,
+                                 tuple(x[idx] for x in ref), p))
+        if ci == 0:
+            phase("fault3", cast=ci, ray=FAULT3_RAY, o=o[FAULT3_RAY].tolist(),
+                  d=d[FAULT3_RAY].tolist(),
+                  kernel=[float(ref[0][FAULT3_RAY]), int(ref[1][FAULT3_RAY])],
+                  plain=[float(p[0][idx == FAULT3_RAY][0]),
+                         int(p[1][idx == FAULT3_RAY][0])])
+    phase("pt_casts_exact", casts=len(casts),
+          rays=sum(c["rays"] for c in exact),
+          grazes=sum(c["grazes"] for c in exact),
+          tie_prims=sum(c["tie_prims"] for c in exact),
+          max_abs_err=max(c["max_abs_err"] for c in exact))
     gate = {}
     for name in ("packet7", "packet"):
         fn = getattr(traversal_module(name), TRAVERSALS[name]["cuda"])
@@ -884,13 +1132,15 @@ def pt_impls(torch) -> dict:
             got = fn(scene.tris, scene.bvh, o, d, lo, hi, any_hit)
             rays = torch.nonzero(mismatched(got, ref, lo, hi, any_hit)
                                  ).squeeze(1).tolist()
-            for i, graze in zip(rays, leaf_grazes(scene.bvh, o, d, hi, ref,
-                                                  got, rays)):
-                (grazes if graze else bad).append(dict(
+            for i, proof in zip(rays, box_grazes(scene.bvh, o, d, got, ref,
+                                                 rays, (1.0, 1.0),
+                                                 walk1_leaf_test(),
+                                                 any_hit)):
+                (grazes if proof else bad).append(dict(
                     cast=ci, ray=i, any_hit=any_hit, o=o[i].tolist(),
                     d=d[i].tolist(), t_min=float(lo[i]), t_max=float(hi[i]),
                     ref=[float(ref[0][i]), int(ref[1][i])],
-                    got=[float(got[0][i]), int(got[1][i])]))
+                    got=[float(got[0][i]), int(got[1][i])], proof=proof))
             keep = torch.ones((o.shape[0],), dtype=torch.bool,
                               device=o.device)
             keep[rays] = False
@@ -900,13 +1150,13 @@ def pt_impls(torch) -> dict:
             errs.append(err)
             ties += tie_prims
         gate[name] = dict(casts=len(casts), max_abs_t_err=max(errs),
-                          tie_prims=ties, leaf_grazes=len(grazes),
+                          tie_prims=ties, box_grazes=len(grazes),
                           graze_rays=grazes[:4], disagreeing=bad[:4])
         if bad:
             phase("pt_impls_casts", per_cast=gate)
             raise AssertionError(f"{name} disagrees with bvh_traverse on "
                                  f"{len(bad)} rays of the PT casts that no "
-                                 "leaf-box graze explains")
+                                 "box graze explains")
     images = {}
     for name in ("packet7", "packet"):
         outside = _outside(imgs[name], imgs["bvh_traverse"], PT_IMPL_RTOL,
@@ -996,14 +1246,20 @@ def main() -> int:
     traversal_bounds(entries)
     phase("kernel_check_done", triangles=scene.num_triangles,
           nodes=scene.bvh.node_min.shape[0], bvh_depth=scene.bvh.depth,
+          walk_records=scene.bvh.walk_nodes.shape[0],
+          walk_bytes=scene_bytes("bvh_traverse", scene.tris, scene.bvh),
           leaf_rows=scene.bvh.pk_tri_rows.shape[0], scene_load_s=load_s,
           wall_s=time.perf_counter() - t0)
     del sets
 
-    # ---- 3: the "ours" main path through the CLI at full size ----
-    launches = dict(main_path("main_path", CONFIG, 2, torch, kind, smi,
-                              not_launched=("vsl_sample",),
-                              extra=ours_extra(job))["launches"])
+    # ---- 3: the "ours" main path through the CLI at full size, and #1 on
+    # a sample of each of its cast kinds ----
+    run = main_path("main_path", CONFIG, 2, torch, kind, smi,
+                    not_launched=("vsl_sample",), extra=ours_extra(job),
+                    sample_casts=True)
+    launches = dict(run["launches"])
+    sampled_casts_check("main_path_casts", run, scene, torch)
+    del run
 
     t0 = time.perf_counter()
     passes = pass_breakdown(job, torch, (
@@ -1023,9 +1279,12 @@ def main() -> int:
     # ---- 5: the VSL main path through the CLI at full size ----
     vrun = main_path("vsl_main_path", VSL_CONFIG, 1, torch, kind, smi,
                      launched=("vsl_sample",),
-                     nonzero=("weightedVplFilename",), extra=vsl_extra)
+                     nonzero=("weightedVplFilename",), extra=vsl_extra,
+                     sample_casts=True)
     for k, v in vrun["launches"].items():
         launches[k] += v
+    sampled_casts_check("vsl_main_path_casts", vrun, vjob.scene, torch)
+    del vrun
 
     t0 = time.perf_counter()
     passes = pass_breakdown(vjob, torch, (

@@ -14,6 +14,11 @@ slots [L * ROW_TRIS, (L + rpl) * ROW_TRIS), padded with empty slots, so
 the traversals' slot ids are the triangle ids the shading tables use and
 both packages report the same prim ids.  The JAX package's fused-node and
 packed16 forms are TPU memory layouts and are not built.
+
+Every BVH also gets the layout of the port's own traversal kernel
+(`walk_layout`, csrc/traverse.cu): one 64-byte record per internal node
+holding both children's boxes and references, and one 48-byte record per
+triangle.  It is a bit-for-bit copy of the node and triangle arrays.
 """
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ BRUTE_FORCE_MAX_TRIS = 2048
 
 NODE_KEYS = ("node_min", "node_max", "node_skip", "node_first", "node_count")
 PACKED_KEYS = ("pk_tri_rows", "pk_meta", "pk_bounds", "pk_prim_map")
+# floats of one walk node record and of one walk triangle record
+WALK_NODE_FLOATS = 16
+WALK_TRI_FLOATS = 12
 
 
 @dataclass(frozen=True)
@@ -49,6 +57,9 @@ class BVH:
     pk_prim_map: (L * ROW_TRIS,) i32, the builder-order triangle of each
     slot (-1 = padding).  One-row dummies at or below BRUTE_FORCE_MAX_TRIS.
 
+    walk_nodes: (M, 16) f32 and walk_tris: (T, 12) f32, the traversal
+    kernel's records (`walk_layout`).
+
     rpl: slot rows per leaf.  fused_nodes: the JAX package would build this
     scene with fused node rows (above 280,000 triangles); its dispatch then
     runs only the packet3 kernel.  depth: the longest root-to-leaf path in
@@ -62,6 +73,8 @@ class BVH:
     pk_meta: torch.Tensor
     pk_bounds: torch.Tensor
     pk_prim_map: torch.Tensor
+    walk_nodes: torch.Tensor
+    walk_tris: torch.Tensor
     rpl: int = 1
     fused_nodes: bool = False
     depth: int = 0
@@ -179,12 +192,56 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     return arrays, order
 
 
+def walk_layout(nmin, nmax, skip, first, count, v0, e1, e2):
+    """The traversal kernel's records, as numpy: (nodes (M, 16) f32,
+    tris (T, 12) f32).  Boxes and vertices are copied bit for bit.
+
+    Node record 0 is a super-root whose left child is the root and whose
+    right child is an empty leaf; record 1 + k is the k-th internal node in
+    DFS order.  A record holds [left box min3 max3, right box min3 max3,
+    left ref, right ref, left count, right count], the last four as int32
+    bits.  The children of internal node i are i + 1 and skip[i + 1].  A ref
+    >= 0 is an internal child's record; a ref < 0 is a leaf whose first
+    triangle is ~ref and whose triangle count is the count word.  Triangle
+    record s is [v0, 0, e1, 0, e2, 0] of triangle s, in the order the node
+    arrays index (the slot order above BRUTE_FORCE_MAX_TRIS)."""
+    n = count.shape[0]
+    internal = np.nonzero(count == 0)[0]
+    rec = np.zeros(n, np.int64)
+    rec[internal] = 1 + np.arange(len(internal))
+    left = internal + 1
+    kids = np.stack([np.concatenate([[0], left]),
+                     np.concatenate([[0], skip[left]])], axis=1)  # (M, 2)
+    nodes = np.zeros((kids.shape[0], WALK_NODE_FLOATS), np.float32)
+    words = nodes.view(np.int32)
+    for c in range(2):
+        k = kids[:, c]
+        nodes[:, 6 * c:6 * c + 3] = nmin[k]
+        nodes[:, 6 * c + 3:6 * c + 6] = nmax[k]
+        words[:, 12 + c] = np.where(count[k] > 0, ~first[k], rec[k])
+        words[:, 14 + c] = count[k]
+    # the super-root's right child: an empty leaf (no triangles)
+    words[0, 13], words[0, 15] = -1, 0
+    nt = v0.shape[0]
+    tris = np.zeros((nt, WALK_TRI_FLOATS), np.float32)
+    for c, x in enumerate((v0, e1, e2)):
+        tris[:, 4 * c:4 * c + 3] = x
+    return nodes, tris
+
+
 def bvh_from_arrays(arrays: dict, device) -> BVH:
-    """BVH from numpy arrays keyed as `build_bvh` writes them."""
+    """BVH from numpy arrays keyed as `build_bvh` writes them, plus the
+    triangles v0, e1, e2 in the order the node arrays index (as
+    `scene.scene_arrays` writes them), from which the walk records are
+    derived."""
     skip = np.asarray(arrays["node_skip"])
     count = np.asarray(arrays["node_count"])
+    walk = walk_layout(*(np.asarray(arrays[k]) for k in NODE_KEYS + (
+        "v0", "e1", "e2")))
     return BVH(**{k: torch.as_tensor(np.array(arrays[k]), device=device)
                   for k in NODE_KEYS + PACKED_KEYS},
+               walk_nodes=torch.as_tensor(walk[0], device=device),
+               walk_tris=torch.as_tensor(walk[1], device=device),
                rpl=int(arrays["bvh_rpl"]),
                fused_nodes=bool(arrays["bvh_fused_nodes"]),
                depth=tree_depth(skip, count))

@@ -1,5 +1,7 @@
 // Ray I/O, the slab test and the ray-triangle test of the three BVH
-// traversal kernels (traverse.cu, packet7.cu, packet.cu).
+// traversal kernels (traverse.cu, packet7.cu, packet.cu).  traverse.cu
+// uses the slab interval on its own and the kTies form of the triangle
+// test; packet7.cu and packet.cu use slab_enter and the strict form.
 //
 // The kernels are held to each other hit for hit, which holds only if they
 // round alike, so each test is written once, here.  Numerics: the kernels
@@ -53,32 +55,43 @@ __device__ __forceinline__ Ray load_ray(const Rays& r, int i) {
                   r.d[3 * i + 1], r.d[3 * i + 2], r.t_min[i]);
 }
 
+// The ray's slab interval [t_near, t_far] through the box [lo, hi].
+__device__ __forceinline__ void slab(const Ray& r, float lox, float loy,
+                                     float loz, float hix, float hiy,
+                                     float hiz, float& t_near, float& t_far) {
+  const float ax = (lox - r.ox) * r.ix, bx = (hix - r.ox) * r.ix;
+  const float ay = (loy - r.oy) * r.iy, by = (hiy - r.oy) * r.iy;
+  const float az = (loz - r.oz) * r.iz, bz = (hiz - r.oz) * r.iz;
+  t_near = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
+  t_far = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
+}
+
+// Whether the slab interval [t_near, t_far] admits the ray at some
+// t_near <= t.
+__device__ __forceinline__ bool slab_admits(float t_near, float t_far,
+                                            float t) {
+  return t_near <= t_far && t_far >= 0.0f && t_near <= t;
+}
+
 // Whether the ray enters the box [lo, hi] at some t_near <= t.
 __device__ __forceinline__ bool slab_enter(const Ray& r, float lox, float loy,
                                            float loz, float hix, float hiy,
                                            float hiz, float t) {
-  const float ax = (lox - r.ox) * r.ix, bx = (hix - r.ox) * r.ix;
-  const float ay = (loy - r.oy) * r.iy, by = (hiy - r.oy) * r.iy;
-  const float az = (loz - r.oz) * r.iz, bz = (hiz - r.oz) * r.iz;
-  const float t_near =
-      fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
-  const float t_far =
-      fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
-  return t_near <= t_far && t_far >= 0.0f && t_near <= t;
+  float t_near, t_far;
+  slab(r, lox, loy, loz, hix, hiy, hiz, t_near, t_far);
+  return slab_admits(t_near, t_far, t);
 }
 
-// Double-sided Moller-Trumbore against the triangle (v0, e1, e2), three
-// floats each: whether the ray hits it with |det| > kTriEps at
-// tt in (r.lo, t); sets tt, uu, vv.
-__device__ __forceinline__ bool ray_tri(const Ray& r,
-                                        const float* __restrict__ v0,
-                                        const float* __restrict__ e1,
-                                        const float* __restrict__ e2,
-                                        float t, float& tt, float& uu,
-                                        float& vv) {
-  const float v0x = v0[0], v0y = v0[1], v0z = v0[2];
-  const float e1x = e1[0], e1y = e1[1], e1z = e1[2];
-  const float e2x = e2[0], e2y = e2[1], e2z = e2[2];
+// Double-sided Moller-Trumbore against the triangle (v0, e1, e2): whether
+// the ray hits it with |det| > kTriEps at tt in (r.lo, t), or with kTies in
+// (r.lo, t], so that the caller can break an exact tie in t; sets tt, uu,
+// vv.
+template <bool kTies = false>
+__device__ __forceinline__ bool ray_tri(const Ray& r, float v0x, float v0y,
+                                        float v0z, float e1x, float e1y,
+                                        float e1z, float e2x, float e2y,
+                                        float e2z, float t, float& tt,
+                                        float& uu, float& vv) {
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
@@ -93,7 +106,18 @@ __device__ __forceinline__ bool ray_tri(const Ray& r,
   vv = ((r.dx * qx + r.dy * qy) + r.dz * qz) * inv_det;
   tt = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det;
   return good && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > r.lo &&
-         tt < t;
+         (kTies ? tt <= t : tt < t);
+}
+
+// The same test with v0, e1, e2 read as three floats each.
+__device__ __forceinline__ bool ray_tri(const Ray& r,
+                                        const float* __restrict__ v0,
+                                        const float* __restrict__ e1,
+                                        const float* __restrict__ e2,
+                                        float t, float& tt, float& uu,
+                                        float& vv) {
+  return ray_tri(r, v0[0], v0[1], v0[2], e1[0], e1[1], e1[2], e2[0], e2[1],
+                 e2[2], t, tt, uu, vv);
 }
 
 }  // namespace evplp

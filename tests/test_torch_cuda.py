@@ -1,15 +1,19 @@
 """The port's kernels on the card against their plain PyTorch versions: the
 three traversal kernels (traverse.cu, packet7.cu, packet.cu) on the
-box_field config's scene (24,010 triangles), and the VSL sample-loop kernel
-on a random group of 8 records over 16,384 pixels made with numpy.  These tests need a CUDA card and skip elsewhere;
-the file imports no JAX, so it runs on a machine without it:
+box_field config's scene (24,010 triangles), traverse.cu also exactly on a
+200-box field and on coincident duplicate triangles (scenes made with
+numpy here), and the VSL sample-loop kernel on a random group of 8 records
+over 16,384 pixels made with numpy.  These tests need a CUDA card and skip
+elsewhere; the file imports no JAX, so it runs on a machine without it:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
 Tolerance: closest hits agree prim for prim or tie in t at rtol 1e-4, with t
 at rtol 1e-5 (the kernel is built with -fmad=false and rounds as the plain
-ops do); any-hit results are equal on live lanes.  The VSL kernel matches
+ops do); any-hit results are equal on live lanes.  traverse.cu is held to
+traverse_plain exactly (t, prim, u, v equal; ties in t go to the least
+slot).  The VSL kernel matches
 its plain version at rtol 2e-4, atol 2e-5, the tolerance the JAX package
 holds its own VSL kernel to."""
 import dataclasses
@@ -21,7 +25,9 @@ import torch
 
 from evplp_tpu_torch.core import mathutil as mu
 from evplp_tpu_torch.integrators import vsl_kernel
+from evplp_tpu_torch.scene.camera import Camera
 from evplp_tpu_torch.scene.config import load_config
+from evplp_tpu_torch.scene.scene import build_scene
 from evplp_tpu_torch.trace import packet, packet7, traverse
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -48,6 +54,93 @@ def _rays(scene, any_hit):
         live = torch.rand((N,), generator=gen, device="cuda") < 0.5
         t_max = torch.where(live, 1.0 - 1e-4, 0.0)
     return scene.tris, scene.bvh, o, d, t_min, t_max, any_hit
+
+
+def _quads(quads):
+    """Positions and indices of quads (p0, p1, p2, p3), two triangles
+    each."""
+    pos = np.asarray(quads, np.float32).reshape(-1, 3)
+    tri = np.array([[0, 1, 2], [0, 2, 3]])
+    idx = (4 * np.arange(len(quads))[:, None, None] + tri).reshape(-1, 3)
+    return pos, idx
+
+
+def _scene(meshes, device):
+    """A scene of the meshes (positions, indices), grey, with a small light
+    quad at y = 2.5."""
+    light = _quads([[[1.6, 2.5, 1.6], [2.4, 2.5, 1.6], [2.4, 2.5, 2.4],
+                     [1.6, 2.5, 2.4]]])
+    cam = Camera(origin=(2.0, 1.2, 7.0), look_at=(2.0, 0.8, 0.0),
+                 up=(0.0, 1.0, 0.0), fovy=0.6, aspect=1.0)
+    k = len(meshes)
+    return build_scene([m[0] for m in meshes], [m[1] for m in meshes],
+                       [(0.5, 0.5, 0.5)] * k, [(0.0, 0.0, 0.0)] * k,
+                       [0.0] * k, light[0], light[1], (10.0, 10.0, 10.0),
+                       cam, device=device)
+
+
+def box_field_scene(num_boxes, device, seed=0):
+    """num_boxes random axis-aligned boxes (12 triangles each, half-sizes
+    0.02-0.08) in a 4 x 2 x 4 room, made with numpy as the JAX package's
+    procedural.box_field makes its field (200 boxes: 2,412 triangles)."""
+    rs = np.random.default_rng(seed)
+    room = _quads([
+        ([0, 0, 0], [0, 0, 4], [4, 0, 4], [4, 0, 0]),
+        ([0, 2, 0], [4, 2, 0], [4, 2, 4], [0, 2, 4]),
+        ([0, 0, 0], [4, 0, 0], [4, 2, 0], [0, 2, 0]),
+        ([0, 0, 0], [0, 2, 0], [0, 2, 4], [0, 0, 4]),
+        ([4, 0, 0], [4, 0, 4], [4, 2, 4], [4, 2, 0])])
+    quads = []
+    for c, h in zip(rs.uniform([0.2, 0.0, 0.2], [3.8, 1.0, 3.8],
+                               (num_boxes, 3)),
+                    rs.uniform(0.02, 0.08, (num_boxes, 3))):
+        (x0, y0, z0), (x1, y1, z1) = c - h, c + h
+        quads += [([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1]),
+                  ([x0, y1, z0], [x0, y1, z1], [x1, y1, z1], [x1, y1, z0]),
+                  ([x0, y0, z0], [x0, y1, z0], [x1, y1, z0], [x1, y0, z0]),
+                  ([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]),
+                  ([x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0]),
+                  ([x1, y0, z0], [x1, y1, z0], [x1, y1, z1], [x1, y0, z1])]
+    return _scene([room, _quads(quads)], device)
+
+
+def duplicate_grid_scene(device, n=24):
+    """n x n unit-square quads on the plane y = 0 over [0, 4]^2, each of
+    their 2 n^2 triangles twice, as two meshes (coincident duplicates in
+    other slots; 2,306 triangles for n = 24)."""
+    x = np.linspace(0.0, 4.0, n + 1, dtype=np.float32)
+    quads = [([x[i], 0, x[j]], [x[i + 1], 0, x[j]], [x[i + 1], 0, x[j + 1]],
+              [x[i], 0, x[j + 1]]) for i in range(n) for j in range(n)]
+    grid = _quads(quads)
+    return _scene([grid, grid], device)
+
+
+def grid_edge_rays(n=24, seed=5):
+    """Rays from above, tilted at random, aimed at the grid's inner
+    vertices, edge midpoints and diagonal midpoints (points shared by two
+    or more triangles): (o, d) float32."""
+    rs = np.random.default_rng(seed)
+    h = 4.0 / n
+    g = np.arange(1, n) * h
+    pts = np.concatenate([np.stack(np.meshgrid(g + a, g + b), -1).reshape(
+        -1, 2) for a, b in ((0, 0), (h / 2, 0), (0, h / 2), (h / 2, h / 2))])
+    target = np.stack([pts[:, 0], np.zeros(len(pts)), pts[:, 1]], -1)
+    tilt = rs.uniform(0.05, 0.3, (len(pts), 2)) * rs.choice([-1, 1],
+                                                          (len(pts), 2))
+    o = target + np.stack([tilt[:, 0], np.full(len(pts), 1.5), tilt[:, 1]],
+                          -1)
+    return o.astype(np.float32), (target - o).astype(np.float32)
+
+
+def lower_of_duplicates(tris, prim) -> bool:
+    """Whether each prim has exactly one coincident duplicate and is the
+    lower slot of the two."""
+    p = prim.long()
+    same = ((tris.v0[None] == tris.v0[p][:, None]).all(-1)
+            & (tris.e1[None] == tris.e1[p][:, None]).all(-1)
+            & (tris.e2[None] == tris.e2[p][:, None]).all(-1))
+    return bool((same.sum(1) == 2).all()) and bool(
+        (same.int().argmax(1) == p).all())
 
 
 # (module, dispatching wrapper, plain version) of each traversal kernel
@@ -82,6 +175,48 @@ def test_kernel_matches_plain(scene, any_hit, kernel):
     assert m.mean() > 0.5
 
 
+@pytest.fixture(scope="module")
+def box_field_200():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return box_field_scene(200, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_equals_plain_exactly(box_field_200, any_hit):
+    args = _rays(box_field_200, any_hit)
+    t_k, p_k, u_k, v_k = traverse.traverse_cuda(*args)
+    t_p, p_p, u_p, v_p = traverse.traverse_plain(*args)
+    if any_hit:
+        live = args[5] > args[4]
+        assert torch.equal(p_k[live] >= 0, p_p[live] >= 0)
+        assert 0.1 < float((p_p[live] >= 0).float().mean()) < 0.9
+        return
+    assert float((p_p >= 0).float().mean()) > 0.5
+    for got, want in ((t_k, t_p), (p_k, p_p), (u_k, u_p), (v_k, v_p)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_ties_take_the_least_slot():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    scene = duplicate_grid_scene("cuda")
+    o, d = (torch.from_numpy(x).cuda() for x in grid_edge_rays())
+    r = o.shape[0]
+    args = (scene.tris, scene.bvh, o, d, torch.full((r,), 1e-4,
+                                                    device="cuda"),
+            torch.full((r,), traverse.BIG, device="cuda"), False)
+    t_k, p_k, u_k, v_k = traverse.traverse_cuda(*args)
+    t_p, p_p, u_p, v_p = traverse.traverse_plain(*args)
+    for got, want in ((t_k, t_p), (p_k, p_p), (u_k, u_p), (v_k, v_p)):
+        assert torch.equal(got, want)
+    hit = p_k >= 0
+    assert float(hit.float().mean()) > 0.9
+    assert lower_of_duplicates(scene.tris, p_k[hit])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cuda_fn", [traverse.traverse_cuda,
                                      packet7.packet7_cuda,
@@ -101,8 +236,10 @@ def test_wrapper_rejects_bad_inputs(scene, cuda_fn):
 @pytest.mark.cuda
 def test_packet_wrappers_reject_bad_scenes(scene):
     tris, bvh, o, d, t_min, t_max, _ = _rays(scene, False)
-    deep = dataclasses.replace(bvh, depth=packet.STACK_DEPTH)
-    for fn in (packet7.packet7_cuda, packet.packet_cuda):
+    for fn, mod in ((traverse.traverse_cuda, traverse),
+                    (packet7.packet7_cuda, packet7),
+                    (packet.packet_cuda, packet)):
+        deep = dataclasses.replace(bvh, depth=mod.STACK_DEPTH)
         with pytest.raises(ValueError, match="depth"):
             fn(tris, deep, o, d, t_min, t_max, False)
     unpacked = dataclasses.replace(bvh, pk_meta=bvh.pk_meta[:1])

@@ -82,19 +82,21 @@ def test_packed_layout_bit_exact(scene, leaf_size):
     assert arrays["bvh_fused_nodes"] is False
 
 
-def _port_bvh(jb):
-    """The port's BVH holding a JAX BVH's very arrays (CPU)."""
+def _port_bvh(jb, v0, v1, v2):
+    """The port's BVH holding a JAX BVH's very arrays (CPU); v0, v1, v2 are
+    the triangles in the order its node arrays index."""
     arrays = {k: np.asarray(getattr(jb, k)) for k in PACKED_KEYS + NODE_KEYS}
     return bvh_from_arrays(dict(arrays, bvh_rpl=jb.rpl,
-                                bvh_fused_nodes=False), "cpu")
+                                bvh_fused_nodes=False, v0=v0, e1=v1 - v0,
+                                e2=v2 - v0), "cpu")
 
 
 def _jax_packed(leaf_size):
     """A packed, builder-ordered JAX BVH of the tests/test_packet.py scene
     and the port's BVH holding the same arrays."""
     v0, v1, v2 = _random_tris(311, 2)
-    jb, _ = jax_build_bvh(v0, v1, v2, leaf_size=leaf_size, pack=True)
-    return jb, _port_bvh(jb)
+    jb, perm = jax_build_bvh(v0, v1, v2, leaf_size=leaf_size, pack=True)
+    return jb, _port_bvh(jb, v0[perm], v1[perm], v2[perm])
 
 
 @pytest.fixture
@@ -163,7 +165,7 @@ def _jax_v1_scene(n, seed):
                       e2=jnp.asarray(e2), n=jnp.asarray(nrm))
     tt = Triangles(*(torch.from_numpy(np.ascontiguousarray(x, np.float32))
                      for x in (v0, e1, e2, nrm)))
-    return jt, jb, tt, _port_bvh(jb)
+    return jt, jb, tt, _port_bvh(jb, v0, v1, v2)
 
 
 def test_packet_plain_matches_jax_kernel(interpret):

@@ -7,7 +7,13 @@ Run from a checkout of the repository on a machine with a CUDA card.  It
 builds the port's kernels from the sources (one nvcc per source, all at
 once) and holds each kernel against its plain PyTorch version on samples of
 the main paths' inputs: the three BVH traversal kernels (traverse.cu,
-packet7.cu, packet.cu) and the VSL sample kernel.  traverse.cu, the
+packet7.cu, packet.cu) and the VSL sample kernel.  The VSL sample kernel
+(vsl_sample.cu) is held to its plain version bit for bit on two real
+full-size groups of the VSL frame, after a phase (vsl_work_shape) that
+prints the shape of its work there: the lane efficiency of four work
+layouts, the share of samples in which each strategy's guard holds, the
+share of pairs without a phong lobe, and the operations the inputs need,
+from which its operations bound is counted.  traverse.cu, the
 default traversal, is held to the skip-pointer walk traverse_plain exactly
 (t, prim, u, v), on the samples, on a sample of each cast kind of the
 "ours" and VSL frames and on every recorded PT cast; a ray on which they
@@ -112,12 +118,31 @@ KERNELS = tuple(TRAVERSALS) + ("vsl_sample",)
 # differ beyond rtol 1e-4 / atol 1e-5, at most this many (a t-tie may pick
 # another triangle under packet7's near-child-first order)
 PT_IMPL_RTOL, PT_IMPL_ATOL, PT_IMPL_MAX_PIXELS = 1e-4, 1e-5, 9
-# operations of the VSL sample kernel, counted from csrc/vsl_sample.cu:
-# per sample 660 float operations (sin, cos, pow and sqrt count as one
-# each, so the bound is a lower bound) and 64 integer operations of the two
-# pcg4d draws; per gated (pixel, record) pair 33 float operations of setup
-VSL_SAMPLE_OPS = 660 + 64
-VSL_PAIR_OPS = 33
+# operations of the VSL sample kernel, counted from csrc/vsl_sample.cu;
+# sin, cos, pow and sqrt count as one operation each and a negation as none
+# (an operand modifier), so every bound is a lower bound.  The count of
+# all the work, every strategy and both lobes on every sample (the bound of
+# the kernel's one-thread-a-pixel design): 660 float and 64 integer
+# operations a sample, 33 a gated (pixel, record) pair
+VSL_ALL_SAMPLE_OPS = 660 + 64
+VSL_ALL_PAIR_OPS = 33
+# The count of what the inputs need (vsl_ops_per_sample), each term on the
+# samples or pairs where the kernel does it: every sample's two pcg4d
+# draws (64 integer), cone direction, its cosines and guard, eye-BRDF
+# direction (either lobe's: 39) and cone test, and the sum (185); the
+# light-BRDF direction and cone test where the record is not black (47);
+# each strategy's evaluation where its guard holds, phong terms apart
+# (cone 64, eye BRDF 70, light BRDF 64); a phong value on the record side
+# (10), on the eye side with its reflect (22), a phong pdf (9), a phong
+# lobe's weight beyond a lambert one's (10); and a gated pair's setup and
+# sum (26).
+VSL_NEED_OPS = dict(samples=185, light_dir=47, cone=64, eye_brdf=70,
+                    light_brdf=64, phong_f_rec=10, phong_f_eye=22,
+                    phong_pdf=9, phong_weight=10, pairs=26)
+# the VSL sample kernel's pixels a block and the sample count above which
+# a pair takes a warp (csrc/vsl_sample.cu kBlock, kWarpPairSteps)
+VSL_BLOCK = 256
+VSL_WARP_PAIR_STEPS = 24
 # bytes a pixel moves per group of G records: 16 planes, id and gate bits
 # in, G cos_half and count planes in, 3 floats out
 VSL_PIXEL_BYTES = 4 * (16 + 2 + 3)
@@ -606,13 +631,22 @@ def vsl_work(gates, counts, torch):
             (bits * torch.clamp_max(counts, MAX_VSL_SAMPLES)).sum())
 
 
-def vsl_bound_ms(n, g, pairs, samples) -> tuple:
-    """(bytes bound, operations bound) in ms of one group call."""
-    bytes_ms = ((VSL_PIXEL_BYTES + VSL_PIXEL_RECORD_BYTES * g) * n
-                + 96 * g) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = (VSL_SAMPLE_OPS * samples + VSL_PAIR_OPS * pairs
-              ) / PEAK_F32_PER_S * 1e3
-    return bytes_ms, ops_ms
+def vsl_bytes_ms(n, g) -> float:
+    """The bytes bound in ms of one group call of g records over n pixels."""
+    return ((VSL_PIXEL_BYTES + VSL_PIXEL_RECORD_BYTES * g) * n
+            + 96 * g) / PEAK_BYTES_PER_S * 1e3
+
+
+def vsl_ops_ms(pairs, samples, ops_per_sample=None) -> float:
+    """The operations bound in ms of `pairs` gated pairs taking `samples`
+    samples: of all the work (VSL_ALL_*) without ops_per_sample, else of
+    what the inputs need, with ops_per_sample the needed operations of an
+    average sample (vsl_ops_per_sample on a check group)."""
+    if ops_per_sample is None:
+        ops = VSL_ALL_SAMPLE_OPS * samples + VSL_ALL_PAIR_OPS * pairs
+    else:
+        ops = ops_per_sample * samples + VSL_NEED_OPS["pairs"] * pairs
+    return ops / PEAK_F32_PER_S * 1e3
 
 
 class VslLaunchTimer:
@@ -642,27 +676,26 @@ class VslLaunchTimer:
         self.mod.vsl_sample_group_cuda = self.real
 
     def summary(self) -> dict:
-        """Launches, gated pairs, samples, kernel ms and both bounds."""
+        """Launches, gated pairs, samples, kernel ms and the bytes bound."""
         self.torch.cuda.synchronize()
         out = dict(launches=0, pairs=0, samples=0, ms=0.0,
-                   bytes_bound_ms=0.0, ops_bound_ms=0.0)
+                   bytes_bound_ms=0.0)
         for n, g, (pairs, samples), (s, e) in self.events:
-            pairs, samples = int(pairs), int(samples)
-            bytes_ms, ops_ms = vsl_bound_ms(n, g, pairs, samples)
             out["launches"] += 1
-            out["pairs"] += pairs
-            out["samples"] += samples
+            out["pairs"] += int(pairs)
+            out["samples"] += int(samples)
             out["ms"] += s.elapsed_time(e)
-            out["bytes_bound_ms"] += bytes_ms
-            out["ops_bound_ms"] += ops_ms
+            out["bytes_bound_ms"] += vsl_bytes_ms(n, g)
         return out
 
 
-def vsl_group_inputs(job, torch) -> tuple:
-    """The arguments of one real VSL group call at full size: the frame's
-    G-buffer and one light trace of the config's first frame, the pass's
-    seeds, and the first group of 8 records whose gates (from the traversal
-    kernel) are not all empty."""
+def vsl_frame_groups(job, torch) -> tuple:
+    """The arguments of two real VSL group calls at full size, from the
+    frame's G-buffer, one light trace of the config's first frame and the
+    pass's seeds: the first group of 8 records whose gates (from the
+    traversal kernel) are not all empty and whose records hold both a
+    diffuse (ks == 0) and a glossy one, and the first group with gates
+    from the middle of the records on.  Returns (first, middle, radius)."""
     from evplp_tpu_torch.core import mathutil as mu
     from evplp_tpu_torch.core import rng
     from evplp_tpu_torch.core.sampling import iteration_key
@@ -683,49 +716,204 @@ def vsl_group_inputs(job, torch) -> tuple:
     seed0, seed1 = (int(x) for x in rng.seeds_from_key(rng.fold_in(key, 2)))
     r = torch.tensor(max(scene.bounding_radius * p.vsl_radius_percentage,
                          0.008), dtype=torch.float32, device=dev)
+    inv_pi_r2 = torch.tensor(mu.INV_PI, dtype=torch.float32,
+                             device=dev) / (r * r)
     records = vsl._records_of(pm, p.num_vpl_light_paths)
     m = records["pos"].shape[0]
     group = vsl.TRACE_GROUP
     shifts = torch.arange(group, dtype=torch.int32, device=dev)[:, None]
-    for g0 in range(0, m - group + 1, group):
-        recs = {k: v[g0:g0 + group] for k, v in records.items()}
-        gates = vsl._group_occlusion(scene, gbuf.position, gbuf.normal,
-                                     gbuf.stencil, recs)
-        if bool(gates.any()):
-            break
-    else:
-        raise AssertionError("every VSL group's gates are empty")
-    mask = torch.sum(gates.to(torch.int32) << shifts, dim=0,
-                     dtype=torch.int32)
-    cos_half, counts = vsl_kernel.ctx_planes(gbuf.position, recs["pos"], r)
     cam = torch.tensor(scene.camera.origin, dtype=torch.float32,
                        device=dev)
     wi10 = mu.normalize(cam[None, :] - gbuf.position)
     pix = vsl_kernel.pack_pixels(gbuf.position, gbuf.normal, gbuf.kd,
                                  gbuf.ks, gbuf.ns, wi10)
-    table = vsl_kernel.pack_records(
-        recs, torch.tensor(mu.INV_PI, dtype=torch.float32, device=dev)
-        / (r * r))
     pixel_ids = torch.arange(pix.shape[1], dtype=torch.int32, device=dev)
-    return (pix, pixel_ids, mask, cos_half, counts, table, seed0, seed1,
-            g0), float(r)
+
+    def group_args(g0):
+        recs = {k: v[g0:g0 + group] for k, v in records.items()}
+        gates = vsl._group_occlusion(scene, gbuf.position, gbuf.normal,
+                                     gbuf.stencil, recs)
+        if not bool(gates.any()):
+            return None
+        mask = torch.sum(gates.to(torch.int32) << shifts, dim=0,
+                         dtype=torch.int32)
+        cos_half, counts = vsl_kernel.ctx_planes(gbuf.position, recs["pos"],
+                                                 r)
+        return (pix, pixel_ids, mask, cos_half, counts,
+                vsl_kernel.pack_records(recs, inv_pi_r2), seed0, seed1, g0)
+
+    def mixed(args):
+        glossy = (args[5][:, 15:18] != 0).any(dim=1)
+        return bool(glossy.any()) and not bool(glossy.all())
+
+    def first_of(starts, want):
+        for g0 in starts:
+            args = group_args(g0)
+            if args is not None and want(args):
+                return args
+        raise AssertionError("no VSL group with gates"
+                             + (" and mixed records" if want is mixed else ""))
+
+    starts = range(0, m - group + 1, group)
+    first = first_of(starts, mixed)
+    middle = first_of(starts[len(starts) // 2:], lambda a: True)
+    return first, middle, float(r)
 
 
-def vsl_kernel_check(job, torch) -> dict:
-    """The VSL kernel against its plain version on SAMPLE_PIXELS pixels in
-    the middle of the frame, for one real group; returns the kernel entry."""
-    from evplp_tpu_torch.integrators import vsl_kernel
-
-    t0 = time.perf_counter()
-    full, radius = vsl_group_inputs(job, torch)
-    pix, pixel_ids, mask, cos_half, counts, table = full[:6]
-    n = pix.shape[1]
+def check_slice(args) -> tuple:
+    """The group call's arguments cut to SAMPLE_PIXELS pixels in the middle
+    of the frame."""
+    n = args[0].shape[1]
     mid = (n - SAMPLE_PIXELS) // 2
     sl = slice(mid, mid + SAMPLE_PIXELS)
-    args = (pix[:, sl].contiguous(), pixel_ids[sl].contiguous(),
-            mask[sl].contiguous(), cos_half[:, sl].contiguous(),
-            counts[:, sl].contiguous(), table) + full[6:]
-    setup_s = time.perf_counter() - t0
+    return (args[0][:, sl].contiguous(), args[1][sl].contiguous(),
+            args[2][sl].contiguous(), args[3][:, sl].contiguous(),
+            args[4][:, sl].contiguous()) + args[5:]
+
+
+def lane_efficiency(args, torch) -> dict:
+    """Useful share of the lanes' sample steps in four layouts of one
+    group call: the sum of the pairs' steps over the steps its warps pay
+    for.  `pixels`: one thread a pixel walking the records, so a warp pays
+    for each record the largest gated count of its 32 pixels; `pairs`: a
+    list of each block's (VSL_BLOCK pixels) gated pairs of non-black
+    pixels, record-major, one thread a pair, 32 a warp; `pairs_sorted`:
+    that list sorted by count, longest first; `kernel`: the kernel's layout,
+    the sorted list with each pair of more than VSL_WARP_PAIR_STEPS steps
+    on a warp of its own, 32 steps at a time.  Steps are min(count, 101)."""
+    from evplp_tpu_torch.core import brdf
+    from evplp_tpu_torch.integrators.vsl_kernel import MAX_VSL_SAMPLES
+    pix, gates, counts = args[0], args[2], args[4]
+    g, n = counts.shape
+    ids = torch.arange(g, dtype=torch.int32, device=gates.device)[:, None]
+    bits = ((gates[None, :] >> ids) & 1) > 0
+    steps = torch.where(bits, torch.clamp(counts, 0, MAX_VSL_SAMPLES), 0)
+    keep = bits & ~brdf.is_black(pix[6:9].T, pix[9:12].T)[None, :]
+    pad = (-n) % VSL_BLOCK
+    steps = torch.nn.functional.pad(steps, (0, pad))
+    keep = torch.nn.functional.pad(keep, (0, pad))
+
+    def paid(chunks):
+        return float(32 * chunks.amax(dim=-1).sum())
+
+    out = dict(pixels=float(steps.sum()) / paid(steps.reshape(g, -1, 32)))
+    blocks = steps.shape[1] // VSL_BLOCK
+    listed = torch.where(keep, steps, -1).reshape(g, blocks, VSL_BLOCK)
+    listed = listed.permute(1, 0, 2).reshape(blocks, g * VSL_BLOCK)
+    order = torch.sort((listed < 0).to(torch.int8), dim=1, stable=True)[1]
+    compact = listed.gather(1, order).clamp_min(0)
+    useful = float(compact.sum())
+    out["pairs"] = useful / paid(compact.reshape(blocks, -1, 32))
+    by_count = torch.sort(listed, dim=1, descending=True)[0].clamp_min(0)
+    out["pairs_sorted"] = useful / paid(by_count.reshape(blocks, -1, 32))
+    long = by_count > VSL_WARP_PAIR_STEPS
+    warp_paid = float(32 * ((by_count[long] + 31) // 32).sum())
+    # the other pairs in chunks of 32 from where the long ones end
+    rest = torch.sort(torch.where(long, -1, by_count), dim=1,
+                      descending=True)[0].clamp_min(0)
+    out["kernel"] = useful / (warp_paid + paid(rest.reshape(blocks, -1, 32)))
+    out["mean_steps_per_pair"] = useful / max(int(keep.sum()), 1)
+    out["block_pixels"] = VSL_BLOCK
+    return out
+
+
+def vsl_sample_work(args, torch) -> dict:
+    """Counts, from the plain version run on `args`, of the work the kernel
+    does (the terms of VSL_NEED_OPS): samples (of non-black gated pairs),
+    samples that build the light-BRDF direction (the record not black),
+    each strategy's guard holding, phong values and pdfs on a side whose ks
+    makes them non-zero (ks != 0; ks.x > 1e-6), phong lobe weights under a
+    guard; and the gated pairs and shares of pixels and records with
+    ks == 0."""
+    from evplp_tpu_torch.core import brdf
+    from evplp_tpu_torch.integrators import vsl_kernel
+    pix, gates, table = args[0], args[2], args[5]
+    g = table.shape[0]
+    eye_ks, rec_ks = pix[9:12].T, table[:, None, 15:18]
+    eye_f, rec_f = (eye_ks != 0).any(-1), (rec_ks != 0).any(-1)
+    eye_p, rec_p = eye_ks[:, 0] > 1e-6, rec_ks[..., 0] > 1e-6
+    black1 = brdf.is_black(pix[6:9].T, eye_ks)
+    black2 = table[:, None, 19] > 0.5
+    tot = dict.fromkeys(VSL_NEED_OPS, 0)
+
+    def observe(live, cone, eye_brdf, light_brdf, eye_lambert,
+                light_lambert):
+        live = live & ~black1
+        terms = dict(
+            samples=live, light_dir=live & ~black2, cone=live & cone,
+            eye_brdf=live & eye_brdf, light_brdf=live & light_brdf)
+        c, e, lb = terms["cone"], terms["eye_brdf"], terms["light_brdf"]
+        for k, v in terms.items():
+            tot[k] = tot[k] + v.sum()
+        tot["phong_f_rec"] = tot["phong_f_rec"] + ((c | e) & rec_f).sum()
+        tot["phong_f_eye"] = tot["phong_f_eye"] + ((c | lb) & eye_f).sum()
+        any_g = (c.int() + e.int() + lb.int())
+        tot["phong_pdf"] = tot["phong_pdf"] + (any_g * eye_p).sum() + (
+            any_g * rec_p).sum()
+        tot["phong_weight"] = tot["phong_weight"] + (e & ~eye_lambert).sum(
+            ) + (lb & ~light_lambert).sum()
+
+    vsl_kernel.vsl_sample_group_plain(*args, observe=observe)
+    ids = torch.arange(g, dtype=torch.int32, device=gates.device)[:, None]
+    bits = ((gates[None, :] >> ids) & 1) > 0
+    tot["pairs"] = bits.sum()
+    out = {k: int(v) for k, v in tot.items()}
+    pairs = max(out["pairs"], 1)
+    out["eye_ks0_pair_share"] = int((bits & ~eye_f).sum()) / pairs
+    out["record_ks0_pair_share"] = int((bits & ~rec_f).sum()) / pairs
+    out["glossy_gated_pixels"] = int((bits.any(0) & eye_f).sum())
+    out["diffuse_gated_pixels"] = int((bits.any(0) & ~eye_f).sum())
+    out["glossy_records"] = int(rec_f.sum())
+    return out
+
+
+def vsl_ops_per_sample(work) -> float:
+    """The operations a sample needs on average (VSL_NEED_OPS), from
+    vsl_sample_work's counts, the pairs' setup apart."""
+    ops = sum(VSL_NEED_OPS[k] * work[k] for k in VSL_NEED_OPS if k != "pairs")
+    return ops / max(work["samples"], 1)
+
+
+def vsl_work_shape(groups, torch) -> dict:
+    """Step 0 of the kernel's design, printed as one phase: the lane
+    efficiency of each full-size group call in the layouts of
+    lane_efficiency, and on each check slice the share of samples in which
+    each strategy's guard holds, the share of gated pairs whose eye or
+    record side has ks == 0, and the needed operations per sample.
+    Returns each check slice's work counts with its lane efficiency and
+    needed operations per sample, by label."""
+    t0 = time.perf_counter()
+    out, works = {}, {}
+    for label, args in groups.items():
+        cut = check_slice(args)
+        pairs, samples = (int(x) for x in vsl_work(args[2], args[4], torch))
+        work = vsl_sample_work(cut, torch)
+        work.update(lane_efficiency=lane_efficiency(cut, torch),
+                    ops_per_sample=vsl_ops_per_sample(work))
+        lived = max(work["samples"], 1)
+        out[label] = dict(
+            rec_base=args[8], pairs=pairs, samples=samples,
+            lane_efficiency=lane_efficiency(args, torch),
+            check_slice=dict(work, strategy_share={
+                k: work[k] / lived for k in ("cone", "eye_brdf",
+                                             "light_brdf")}))
+        works[label] = work
+    phase("vsl_work_shape", config=os.path.relpath(VSL_CONFIG, HERE),
+          pixels=groups["first"][0].shape[1], slice_pixels=SAMPLE_PIXELS,
+          groups=out, wall_s=time.perf_counter() - t0)
+    return works
+
+
+def vsl_kernel_check(label, args, work, torch) -> dict:
+    """The VSL kernel against its plain version on the group's check slice
+    (SAMPLE_PIXELS pixels in the middle of the frame, holding diffuse and
+    glossy gated pixels, the group diffuse and glossy records): equal bit
+    for bit, and within rtol 2e-4 / atol 2e-5.  `work` is the slice's
+    entry of vsl_work_shape.  Returns the kernel entry, with the needed
+    operations per sample and the lane efficiency."""
+    from evplp_tpu_torch.integrators import vsl_kernel
+
+    args = check_slice(args)
     k = vsl_kernel.vsl_sample_group_cuda(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -737,22 +925,61 @@ def vsl_kernel_check(job, torch) -> dict:
     err = float((k - p).abs().max())
     ms = cuda_ms(lambda: vsl_kernel.vsl_sample_group_cuda(*args), reps=20)
     pairs, samples = (int(x) for x in vsl_work(args[2], args[4], torch))
-    bytes_ms, ops_ms = vsl_bound_ms(SAMPLE_PIXELS, table.shape[0], pairs,
-                                    samples)
-    phase("vsl_kernel_check", config=os.path.relpath(VSL_CONFIG, HERE),
-          pixels=SAMPLE_PIXELS, records=table.shape[0], rec_base=args[8],
-          vsl_radius=radius, gated_pairs=pairs, samples=samples,
-          gated_pixels=int((args[2] != 0).sum()),
-          max_count=int(args[4].max()), kernel_ms=ms, plain_ms=plain_ms,
-          max_abs_err=err, max_value=float(p.abs().max()),
-          pixels_outside_tol=outside, bytes_bound_ms=bytes_ms,
-          ops_bound_ms=ops_ms, setup_s=setup_s)
-    if outside != 0 or not bool(p.abs().max() > 0):
-        raise AssertionError(f"VSL kernel disagrees with plain on {outside} "
-                             "pixels (rtol 2e-4, atol 2e-5), or all zero")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    ops_per_sample = work["ops_per_sample"]
+    bytes_ms = vsl_bytes_ms(SAMPLE_PIXELS, args[5].shape[0])
+    all_ms = vsl_ops_ms(pairs, samples)
+    need_ms = vsl_ops_ms(pairs, samples, ops_per_sample)
+    bound_ms = max(bytes_ms, need_ms)
+    phase("vsl_kernel_check", group=label,
+          config=os.path.relpath(VSL_CONFIG, HERE), pixels=SAMPLE_PIXELS,
+          records=args[5].shape[0], rec_base=args[8], gated_pairs=pairs,
+          samples=samples, gated_pixels=int((args[2] != 0).sum()),
+          glossy_gated_pixels=work["glossy_gated_pixels"],
+          diffuse_gated_pixels=work["diffuse_gated_pixels"],
+          glossy_records=work["glossy_records"],
+          eye_ks0_pair_share=work["eye_ks0_pair_share"],
+          record_ks0_pair_share=work["record_ks0_pair_share"],
+          max_count=int(args[4].max()),
+          lane_efficiency=work["lane_efficiency"],
+          ops_per_sample=ops_per_sample, kernel_ms=ms, plain_ms=plain_ms,
+          max_abs_err=err, bit_equal=bool(torch.equal(k, p)),
+          max_value=float(p.abs().max()), pixels_outside_tol=outside,
+          bytes_bound_ms=bytes_ms, ops_bound_ms=need_ms,
+          ops_bound_all_ms=all_ms, share_of_bound=bound_ms / ms,
+          share_of_bound_all=max(bytes_ms, all_ms) / ms)
+    if outside != 0 or err != 0.0 or not torch.equal(k, p):
+        raise AssertionError(f"VSL kernel ({label} group) differs from "
+                             f"plain: max abs error {err}, {outside} pixels "
+                             "outside rtol 2e-4 / atol 2e-5")
+    if not bool(p.abs().max() > 0):
+        raise AssertionError(f"VSL kernel check ({label} group): all zero")
+    if min(work["glossy_gated_pixels"], work["diffuse_gated_pixels"]) == 0:
+        raise AssertionError(f"VSL check slice ({label} group) lacks "
+                             "diffuse or glossy gated pixels")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= need_ms else "operations",
+                ops_per_sample=ops_per_sample,
+                lane_efficiency=work["lane_efficiency"])
+
+
+def vsl_checks(job, torch) -> dict:
+    """Steps 0 and the kernel checks of the VSL sample kernel on two real
+    full-size groups of the VSL frame (vsl_frame_groups): vsl_work_shape,
+    then vsl_kernel_check of each; returns the first group's kernel
+    entry."""
+    t0 = time.perf_counter()
+    first, middle, radius = vsl_frame_groups(job, torch)
+    groups = dict(first=first, middle=middle)
+    setup_s = time.perf_counter() - t0
+    works = vsl_work_shape(groups, torch)
+    if works["first"]["glossy_records"] in (0, first[5].shape[0]):
+        raise AssertionError("the first VSL group lacks diffuse or glossy "
+                             "records")
+    entries = {k: vsl_kernel_check(k, a, works[k], torch)
+               for k, a in groups.items()}
+    phase("vsl_kernel_check_done", vsl_radius=radius, setup_s=setup_s,
+          wall_s=time.perf_counter() - t0)
+    return entries["first"]
 
 
 def pass_breakdown(job, torch, names) -> dict:
@@ -1026,20 +1253,38 @@ def ours_extra(job):
     return extra
 
 
-def vsl_extra(run) -> dict:
-    """The VSL frame's shadow segments, gated pairs, samples and the sample
-    kernel's time and bounds, per frame."""
-    frames, calls = run["frames"], run["vsl_calls"]
-    shadow = run["casts"].get("bvh_traverse.any_hit", {})
-    return dict(
-        shadow_segments_per_frame=shadow.get("rays", 0) / frames,
-        live_shadow_segments_per_frame=shadow.get("live_rays", 0) / frames,
-        gated_pairs_per_frame=calls["pairs"] / frames,
-        samples_per_frame=calls["samples"] / frames,
-        vsl_kernel_ms_per_frame=calls["ms"] / frames,
-        vsl_kernel_ops_bound_ms_per_frame=calls["ops_bound_ms"] / frames,
-        vsl_kernel_bytes_bound_ms_per_frame=calls["bytes_bound_ms"]
-        / frames)
+def vsl_extra(entry):
+    """The VSL frame's shadow segments, gated pairs, samples, and the sample
+    kernel's time and bounds per frame: the bytes bound, the operations
+    bound of all the work and that of what the inputs need (the check
+    group's needed operations per sample, scaled by each launch's
+    samples), with the share of each reached, the check group's lane
+    efficiency and the kernel's registers."""
+    from evplp_tpu_torch.native import build
+
+    def extra(run):
+        frames, calls = run["frames"], run["vsl_calls"]
+        shadow = run["casts"].get("bvh_traverse.any_hit", {})
+        samples, pairs = calls["samples"], calls["pairs"]
+        all_ms = vsl_ops_ms(pairs, samples) / frames
+        need_ms = vsl_ops_ms(pairs, samples, entry["ops_per_sample"]) / frames
+        ms = calls["ms"] / frames
+        bytes_ms = calls["bytes_bound_ms"] / frames
+        return dict(
+            shadow_segments_per_frame=shadow.get("rays", 0) / frames,
+            live_shadow_segments_per_frame=shadow.get("live_rays", 0)
+            / frames,
+            gated_pairs_per_frame=pairs / frames,
+            samples_per_frame=samples / frames,
+            vsl_kernel_ms_per_frame=ms,
+            vsl_kernel_ops_bound_ms_per_frame=need_ms,
+            vsl_kernel_ops_bound_all_ms_per_frame=all_ms,
+            vsl_kernel_bytes_bound_ms_per_frame=bytes_ms,
+            vsl_kernel_share_of_bound=max(bytes_ms, need_ms) / ms,
+            vsl_kernel_share_of_bound_all=max(bytes_ms, all_ms) / ms,
+            vsl_check_lane_efficiency=entry["lane_efficiency"],
+            vsl_kernel_ptxas=build.library_report("vsl_sample"))
+    return extra
 
 
 def pt_impls(torch) -> dict:
@@ -1219,7 +1464,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     from concurrent.futures import ThreadPoolExecutor
     from evplp_tpu_torch.integrators import vsl_kernel
-    from evplp_tpu_torch.native import bvh_native
+    from evplp_tpu_torch.native import build, bvh_native
 
     def timed_build(mod):
         tb = time.perf_counter()
@@ -1233,7 +1478,10 @@ def main() -> int:
         build_s = {k: f.result() for k, f in futures.items()}
     phase("env", torch=torch.__version__, cuda=torch.version.cuda,
           python=sys.version.split()[0], device=kind, nvidia_smi=smi,
-          build_s=build_s, wall_s=time.perf_counter() - t0)
+          build_s=build_s,
+          ptxas={lib: build.library_report(lib) for lib in
+                 [t["module"] for t in TRAVERSALS.values()] + ["vsl_sample"]},
+          wall_s=time.perf_counter() - t0)
 
     # ---- 2: the traversal kernels vs plain on the box_field scene ----
     t0 = time.perf_counter()
@@ -1270,16 +1518,16 @@ def main() -> int:
           wall_s=time.perf_counter() - t0)
     del job, scene
 
-    # ---- 4: VSL kernel vs plain on one real group at full size ----
-    t0 = time.perf_counter()
+    # ---- 4: the VSL sample kernel's work shape, and the kernel vs plain
+    # on two real groups at full size ----
     vjob = load_config(VSL_CONFIG, device="cuda")
-    vsl_entry = vsl_kernel_check(vjob, torch)
-    phase("vsl_kernel_check_done", wall_s=time.perf_counter() - t0)
+    vsl_entry = vsl_checks(vjob, torch)
 
     # ---- 5: the VSL main path through the CLI at full size ----
     vrun = main_path("vsl_main_path", VSL_CONFIG, 1, torch, kind, smi,
                      launched=("vsl_sample",),
-                     nonzero=("weightedVplFilename",), extra=vsl_extra,
+                     nonzero=("weightedVplFilename",),
+                     extra=vsl_extra(vsl_entry),
                      sample_casts=True)
     for k, v in vrun["launches"].items():
         launches[k] += v

@@ -99,13 +99,18 @@ def _record_ctx(pix: dict, rec_pos, cos_half, num_samples, gate, wi10) -> dict:
                 wi10=wi10)
 
 
-def _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s: int):
+def _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s: int,
+                 observe=None):
     """One MC sample of the 3-strategy MIS estimator over the pixels.
 
     rng_ctx = (seed0, seed1, pixel_ids, rec_id): the 8 uniforms of this
     sample are two pcg4d draws on (pixel_id ^ seed0, rec_id, s ^ seed1,
     tag).  rec fields are (3,)/() for one record or (G, 1, 3)/(G, 1) for a
-    group, broadcasting against the ctx's (N, ...) or (G, N, ...)."""
+    group, broadcasting against the ctx's (N, ...) or (G, N, ...).
+    observe, if given, is called with the sample's boolean masks: `live`
+    (a gated pair's sample within its count), each strategy's guard
+    (`cone`, `eye_brdf`, `light_brdf`) and the lobe each BRDF strategy
+    chose (`eye_lambert`, `light_lambert`)."""
     nv12 = ctx["nv12"]
     cos_half = ctx["cos_half"]
     solid_angle = ctx["solid_angle"]
@@ -133,11 +138,11 @@ def _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s: int):
     pdf_b2 = _pdf_brdf2(rec, w12c, p_l)
     w_cone = inv_sa / torch.clamp_min(pdf_b1 + pdf_b2 + inv_sa, 1e-20)
     c_cone = flux * (cc * solid_angle)[..., None] * f1 * f2
-    c_cone = torch.where(((cc > 1e-9) & ~black1)[..., None],
-                         w_cone[..., None] * c_cone, 0.0)
+    cone = (cc > 1e-9) & ~black1
+    c_cone = torch.where(cone[..., None], w_cone[..., None] * c_cone, 0.0)
 
     # ---- strategy 2: eye-side BRDF sampling (:448-521) ----
-    w12b, _, lobe_w1, _ = brdf.sample_combined(
+    w12b, _, lobe_w1, eye_lambert = brdf.sample_combined(
         torch.clamp_max(u2, 0.999999), torch.stack([u3, u4], dim=-1), wi10,
         n, n, kd, ks, ns)
     in_cone1 = mu.dot(w12b, nv12) > cos_half
@@ -148,11 +153,11 @@ def _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s: int):
     pdf_b2b = _pdf_brdf2(rec, w12b, p_l)
     w_b1 = pdf_b1b / torch.clamp_min(pdf_b1b + pdf_b2b + inv_sa, 1e-20)
     c_b1 = flux * cos2b[..., None] * lobe_w1 * f2b
-    c_b1 = torch.where((in_cone1 & (cos1b > 1e-9) & ~black1)[..., None],
-                       w_b1[..., None] * c_b1, 0.0)
+    eye_brdf = in_cone1 & (cos1b > 1e-9) & ~black1
+    c_b1 = torch.where(eye_brdf[..., None], w_b1[..., None] * c_b1, 0.0)
 
     # ---- strategy 3: light-side BRDF sampling (:523-594) ----
-    w21, _, lobe_w2, _ = brdf.sample_combined(
+    w21, _, lobe_w2, light_lambert = brdf.sample_combined(
         torch.clamp_max(u5, 0.999999), torch.stack([u6, u7], dim=-1), rdir,
         rn, rn, rec["kd"], rec["ks"], rec["ns"])
     in_cone2 = -mu.dot(w21, nv12) > cos_half
@@ -165,24 +170,29 @@ def _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s: int):
                + brdf.phong_pdf_w(rn, w21, rdir, rec["ks"], rec["ns"]))
     w_b2 = pdf_b2c / torch.clamp_min(pdf_b1c + pdf_b2c + inv_sa, 1e-20)
     c_b2 = flux * cos2c[..., None] * lobe_w2 * f1c
-    c_b2 = torch.where(
-        (in_cone2 & (cos2c > 1e-8) & ~black1 & ~black2)[..., None],
-        w_b2[..., None] * c_b2, 0.0)
+    light_brdf = in_cone2 & (cos2c > 1e-8) & ~black1 & ~black2
+    c_b2 = torch.where(light_brdf[..., None], w_b2[..., None] * c_b2, 0.0)
 
-    use = (s < ctx["num_samples"])[..., None]
-    return acc + torch.where(use, c_cone + c_b1 + c_b2, 0.0)
+    use = s < ctx["num_samples"]
+    if observe is not None:
+        observe(live=use & ctx["gate"], cone=cone, eye_brdf=eye_brdf,
+                light_brdf=light_brdf, eye_lambert=eye_lambert,
+                light_lambert=light_lambert)
+    return acc + torch.where(use[..., None], c_cone + c_b1 + c_b2, 0.0)
 
 
-def _sample_loop(rec, ctx, rng_ctx, flux, black2) -> torch.Tensor:
+def _sample_loop(rec, ctx, rng_ctx, flux, black2,
+                 observe=None) -> torch.Tensor:
     """The sample loop to the largest gated count, each pixel masked by its
-    own count; returns the gated estimates divided by each count."""
+    own count; returns the gated estimates divided by each count.  observe:
+    see _sample_step."""
     num = ctx["num_samples"]
     s_needed = min(int(torch.where(ctx["gate"], num, 0).max()),
                    vsl_kernel.MAX_VSL_SAMPLES)
     acc = torch.zeros(num.shape + (3,), dtype=torch.float32,
                       device=num.device)
     for s in range(s_needed):
-        acc = _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s)
+        acc = _sample_step(rec, ctx, rng_ctx, flux, black2, acc, s, observe)
     out = acc / torch.clamp_min(num.to(torch.float32), 1.0)[..., None]
     return torch.where(ctx["gate"][..., None], out, 0.0)
 

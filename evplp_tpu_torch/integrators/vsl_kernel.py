@@ -133,11 +133,12 @@ def vsl_sample_group_cuda(pix, pixel_ids, gates, cos_half, counts, table,
 
 
 def vsl_sample_group_plain(pix, pixel_ids, gates, cos_half, counts, table,
-                           seed0: int, seed1: int,
-                           rec_base: int) -> torch.Tensor:
+                           seed0: int, seed1: int, rec_base: int,
+                           observe=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the group's G records as a
     leading dimension, sampled to the group's largest gated count with
-    every pixel masked by its own count (vsl._sample_loop)."""
+    every pixel masked by its own count (vsl._sample_loop).  observe, if
+    given, sees each sample's (G, N) masks (vsl._sample_step)."""
     # imported here: vsl imports this module
     from evplp_tpu_torch.integrators import vsl
 
@@ -152,7 +153,8 @@ def vsl_sample_group_plain(pix, pixel_ids, gates, cos_half, counts, table,
     gate = ((gates[None, :] >> ids) & 1) > 0
     ctx = vsl._record_ctx(px, rec["pos"], cos_half, counts, gate, pix[13:16].T)
     rng_ctx = (seed0, seed1, pixel_ids, rec_base + ids.to(torch.int64))
-    out = vsl._sample_loop(rec, ctx, rng_ctx, t[..., 9:12], t[..., 19] > 0.5)
+    out = vsl._sample_loop(rec, ctx, rng_ctx, t[..., 9:12], t[..., 19] > 0.5,
+                           observe)
     total = torch.zeros_like(out[0])
     for k in range(g):        # the kernel's order: record 0 first
         total = total + out[k]

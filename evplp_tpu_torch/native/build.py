@@ -3,10 +3,11 @@ tensors handed to them.
 
 A library is named after a hash of its compile command and source bytes, so
 a stale build is never loaded, and lands in `build/evplp_tpu_torch/` at the
-repository root.  The compiler writes to a temporary name that is
-`os.replace`d into place under an exclusive file lock, so concurrent
-processes (test workers, a CLI beside a test) neither collide nor load a
-half-written file.
+repository root, beside the compiler's output (`<library>.log`; for a CUDA
+kernel, ptxas's report of its registers, spills and shared memory).  The
+compiler writes to a temporary name that is `os.replace`d into place
+under an exclusive file lock, so concurrent processes (test workers, a CLI
+beside a test) neither collide nor load a half-written file.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,9 +23,11 @@ import threading
 import torch
 
 # -fmad=false: no fused multiply-add, so a kernel rounds op for op as its
-# plain PyTorch version does
+# plain PyTorch version does; -Xptxas -v: ptxas reports each kernel's
+# registers, spills and shared memory (kept in the library's log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -34,8 +38,8 @@ def build_library(name: str, sources: list[str], compile_cmd: list[str],
                   headers: list[str] = ()) -> str:
     """Compile `sources` with `compile_cmd + ["-o", out] + sources` unless a
     library with the same hash (of the command, the sources and the headers
-    they include) exists; return its path.  Raises RuntimeError with the
-    compiler's output when the build fails."""
+    they include) exists; return its path.  The compiler's output is kept
+    in `<path>.log`.  Raises RuntimeError with it when the build fails."""
     h = hashlib.sha256(" ".join(compile_cmd).encode())
     for src in list(sources) + sorted(headers):
         with open(src, "rb") as f:
@@ -55,6 +59,9 @@ def build_library(name: str, sources: list[str], compile_cmd: list[str],
                     raise RuntimeError(
                         f"building {name} failed ({' '.join(compile_cmd)}):\n"
                         f"{proc.stdout}{proc.stderr}")
+                with open(f"{tmp}.log", "w") as log:
+                    log.write(proc.stdout + proc.stderr)
+                os.replace(f"{tmp}.log", f"{path}.log")
                 os.replace(tmp, path)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -77,6 +84,7 @@ def headers_beside(source: str) -> list[str]:
 
 
 _libs: dict = {}
+_lib_paths: dict = {}
 _libs_lock = threading.Lock()
 
 
@@ -90,14 +98,71 @@ def load_cuda_library(name: str, source: str, signatures: dict) -> ctypes.CDLL:
     with _libs_lock:
         lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_library(name, [source], nvcc_command(),
-                                        headers_beside(source)))
+        path = build_library(name, [source], nvcc_command(),
+                             headers_beside(source))
+        lib = ctypes.CDLL(path)
         for fn, argtypes in signatures.items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = argtypes
         with _libs_lock:
             lib = _libs.setdefault(name, lib)
+            _lib_paths.setdefault(name, path)
     return lib
+
+
+def _unmangled(name: str) -> str:
+    """The innermost identifier of an Itanium-mangled name
+    (`_ZN12_GLOBAL__N_16kernelEPKf` -> `kernel`); other names as they are."""
+    i = 3 if name.startswith("_ZN") else 2 if name.startswith("_Z") else 0
+    last = name
+    while i and i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        last, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+    return last
+
+
+def ptxas_report(text: str) -> dict:
+    """Each kernel (entry function) of ptxas's -v output `text`, by its
+    unmangled name -> its registers, spill stores and loads, stack frame
+    and static shared memory in bytes."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(registers=0, spill_stores=0, spill_loads=0,
+                              stack=0, smem=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[entry]["smem"] = int(s.group(1)) if s else 0
+    return {_unmangled(k): v for k, v in out.items()}
+
+
+def library_report(name: str) -> dict:
+    """ptxas_report of the CUDA library loaded under `name` in this process
+    ({} if its build kept no log)."""
+    with _libs_lock:
+        path = _lib_paths.get(name)
+    if path is None or not os.path.exists(f"{path}.log"):
+        return {}
+    with open(f"{path}.log") as f:
+        return ptxas_report(f.read())
 
 
 def check_tensor(x: torch.Tensor, name: str, dtype, shape, device):

@@ -3,7 +3,8 @@ three traversal kernels (traverse.cu, packet7.cu, packet.cu) on the
 box_field config's scene (24,010 triangles), traverse.cu also exactly on a
 200-box field and on coincident duplicate triangles (scenes made with
 numpy here), and the VSL sample-loop kernel on a random group of 8 records
-over 16,384 pixels made with numpy.  These tests need a CUDA card and skip
+over 16,384 pixels made with numpy and on a group with every lobe case it
+branches on (tests/torch_vsl_cases.py).  These tests need a CUDA card and skip
 elsewhere; the file imports no JAX, so it runs on a machine without it:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -13,9 +14,9 @@ Tolerance: closest hits agree prim for prim or tie in t at rtol 1e-4, with t
 at rtol 1e-5 (the kernel is built with -fmad=false and rounds as the plain
 ops do); any-hit results are equal on live lanes.  traverse.cu is held to
 traverse_plain exactly (t, prim, u, v equal; ties in t go to the least
-slot).  The VSL kernel matches
-its plain version at rtol 2e-4, atol 2e-5, the tolerance the JAX package
-holds its own VSL kernel to."""
+slot).  The VSL kernel equals its plain version bit for bit: both round
+op for op (-fmad=false, the same formulas and order), and the work the
+kernel skips adds +0 exactly."""
 import dataclasses
 import os
 
@@ -29,6 +30,7 @@ from evplp_tpu_torch.scene.camera import Camera
 from evplp_tpu_torch.scene.config import load_config
 from evplp_tpu_torch.scene.scene import build_scene
 from evplp_tpu_torch.trace import packet, packet7, traverse
+from torch_vsl_cases import mixed_lobe_group, strategy_counter
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "configs", "box_field", "box_field_ours.json")
@@ -298,7 +300,41 @@ def test_vsl_kernel_matches_plain(vsl_group):
     want = vsl_kernel.vsl_sample_group_plain(*vsl_group)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert want.max() > 0.0 and (got[:7] == 0.0).all()
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("records", [7, vsl_kernel.MAX_GROUP])
+def test_vsl_kernel_mixed_lobes_bit_equal(records):
+    """Diffuse, green-only phong and kd == 0 pixels and records, black
+    pixels and a black record: the kernel's lobe and guard branches give
+    the plain version's bits, and every strategy contributes; also for the
+    largest group a call takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    s = mixed_lobe_group(g=records)
+
+    def cuda(x):
+        return torch.from_numpy(np.asarray(x)).to("cuda")
+
+    px = {k: cuda(v) for k, v in s["px"].items()}
+    recs = {k: cuda(v) for k, v in s["recs"].items()}
+    r = cuda(s["radius"])
+    wi10 = mu.normalize(cuda(s["cam"])[None] - px["position"])
+    cos_half, counts = vsl_kernel.ctx_planes(px["position"], recs["pos"], r)
+    args = [vsl_kernel.pack_pixels(px["position"], px["normal"], px["kd"],
+                                   px["ks"], px["ns"], wi10),
+            cuda(s["pids"]), cuda(s["mask"]), cos_half, counts,
+            vsl_kernel.pack_records(
+                recs, torch.tensor(mu.INV_PI, device="cuda") / (r * r)),
+            0xDEADBEEF, 17, 3]
+    got = vsl_kernel.vsl_sample_group_cuda(*args).cpu().numpy()
+    observe, hits = strategy_counter()
+    want = vsl_kernel.vsl_sample_group_plain(*args, observe=observe)
+    want = want.cpu().numpy()
+    assert min(hits.values()) > 0, hits
+    assert want.max() > 0.0 and (got[:3] == 0.0).all()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

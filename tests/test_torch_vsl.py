@@ -14,7 +14,11 @@ Every input is made from a seed with numpy and handed to both packages.
   summed over the group, at rtol 2e-4, atol 2e-5, the tolerance the JAX
   package holds its own kernel to against its XLA step
   (tests/test_vsl_kernel.py).  Both draw the same pcg4d numbers, so only
-  ulps of sin / cos / pow separate them; no pixel falls outside.
+  ulps of sin / cos / pow separate them; no pixel falls outside.  The same
+  against both references for a group with every lobe case the Hopper
+  kernel branches on (tests/torch_vsl_cases.py: diffuse walls with
+  ks = 0 and ns = 0, green-only phong, kd = 0, black pixels and a black
+  record, G = 7), in which each of the three strategies contributes.
 * `vsl_gather` on the Cornell box at 32x32 (16 VSL paths, 3 records) from
   the JAX package's G-buffer and photon map: rtol 2e-4, atol 2e-6, as
   tests/test_vsl_kernel.py compares two VSL gathers.
@@ -46,6 +50,7 @@ from evplp_tpu_torch.integrators import gbuffer, light_trace, vsl, vsl_kernel
 from evplp_tpu_torch.runtime.loop import ProgressiveSchedule
 from evplp_tpu_torch.scene.config import parse_technique
 from tests.test_torch_scene import torch_scene_of
+from tests.torch_vsl_cases import mixed_lobe_group, strategy_counter
 
 SEED0, SEED1, REC_BASE = 0xDEADBEEF, 17, 3
 
@@ -141,9 +146,8 @@ def _jax_gbuf(s):
     return jgb.GBuffer(**{k: jnp.asarray(v) for k, v in s["px"].items()})
 
 
-def test_sample_group_matches_jax_pallas_kernel(group):
-    s = group
-    got, _ = _port_group(s)
+def _jax_pallas_group(s):
+    """The JAX Pallas kernel, in interpret mode, on the group s: (N, 3)."""
     jvk.set_interpret(True)
     jg = _jax_gbuf(s)
     wi10 = jmu.normalize(jnp.asarray(s["cam"])[None] - jg.position)
@@ -158,7 +162,29 @@ def test_sample_group_matches_jax_pallas_kernel(group):
         jnp.asarray([np.uint32(SEED0).view(np.int32), SEED1, REC_BASE],
                     jnp.int32),
         jnp.asarray([radius]), group=s["g"], rows=8)
-    want = np.stack([np.asarray(out[c]).reshape(-1) for c in range(3)], -1)
+    return np.stack([np.asarray(out[c]).reshape(-1) for c in range(3)], -1)
+
+
+def _jax_sample_record_sum(s):
+    """JAX vsl._sample_record summed over the group s: (N, 3)."""
+    jg = _jax_gbuf(s)
+    wi10 = jmu.normalize(jnp.asarray(s["cam"])[None] - jg.position)
+    radius = jnp.float32(s["radius"])
+    want = jnp.zeros((s["n"], 3))
+    for i in range(s["g"]):
+        rec = {k: jnp.asarray(v[i]) for k, v in s["recs"].items()}
+        rng_ctx = (jnp.uint32(SEED0), jnp.uint32(SEED1),
+                   jnp.asarray(s["pids"]), jnp.int32(REC_BASE + i))
+        want = want + jvsl._sample_record(
+            jg, rec, jnp.asarray(s["gates"][i]), rng_ctx, radius,
+            jmu.INV_PI / (radius * radius), wi10)
+    return np.asarray(want)
+
+
+def test_sample_group_matches_jax_pallas_kernel(group):
+    s = group
+    got, _ = _port_group(s)
+    want = _jax_pallas_group(s)
     assert np.abs(want).max() > 0.0
     assert (want[:7] == 0.0).all() and (got[:7] == 0.0).all()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
@@ -167,27 +193,57 @@ def test_sample_group_matches_jax_pallas_kernel(group):
 def test_sample_group_matches_jax_sample_record(group):
     s = group
     got, (tg, twi10, trecs, r, inv_pi_r2) = _port_group(s)
-    jg = _jax_gbuf(s)
-    wi10 = jmu.normalize(jnp.asarray(s["cam"])[None] - jg.position)
-    radius = jnp.float32(s["radius"])
-    want = jnp.zeros((s["n"], 3))
+    want = _jax_sample_record_sum(s)
     per_record = torch.zeros((s["n"], 3))
     for i in range(s["g"]):
-        rec = {k: jnp.asarray(v[i]) for k, v in s["recs"].items()}
-        rng_ctx = (jnp.uint32(SEED0), jnp.uint32(SEED1),
-                   jnp.asarray(s["pids"]), jnp.int32(REC_BASE + i))
-        want = want + jvsl._sample_record(
-            jg, rec, jnp.asarray(s["gates"][i]), rng_ctx, radius,
-            jmu.INV_PI / (radius * radius), wi10)
         per_record = per_record + vsl._sample_record(
             tg, {k: v[i] for k, v in trecs.items()},
             torch.from_numpy(s["gates"][i]),
             (SEED0, SEED1, torch.from_numpy(s["pids"]), REC_BASE + i), r,
             inv_pi_r2, twi10)
-    want = np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     # the per-record path and the group path are one computation
     np.testing.assert_allclose(per_record.numpy(), got, rtol=1e-6, atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def mixed_group():
+    """G = 7 records over N = 1024 pixels with every lobe case the
+    kernel branches on (tests/torch_vsl_cases.py)."""
+    return mixed_lobe_group()
+
+
+@pytest.mark.parametrize("reference", ["pallas_interpret", "sample_record"])
+def test_mixed_lobe_group_matches_jax(mixed_group, reference):
+    s = mixed_group
+    got, _ = _port_group(s)
+    want = (_jax_pallas_group(s) if reference == "pallas_interpret"
+            else _jax_sample_record_sum(s))
+    assert np.abs(want).max() > 0.0
+    assert (want[:3] == 0.0).all() and (got[:3] == 0.0).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_mixed_lobe_group_takes_every_strategy(mixed_group):
+    """Each strategy's guard holds on some sample of the mixed group, on
+    pairs of every lobe case."""
+    s = mixed_group
+    observe, counts = strategy_counter()
+    _, (tg, wi10, trecs, r, inv_pi_r2) = _port_group(s)
+    cos_half, num = vsl_kernel.ctx_planes(tg.position, trecs["pos"], r)
+    vsl_kernel.vsl_sample_group_plain(
+        vsl_kernel.pack_pixels(tg.position, tg.normal, tg.kd, tg.ks, tg.ns,
+                               wi10),
+        torch.from_numpy(s["pids"]), torch.from_numpy(s["mask"]), cos_half,
+        num, vsl_kernel.pack_records(trecs, inv_pi_r2), SEED0, SEED1,
+        REC_BASE, observe=observe)
+    assert min(counts.values()) > 0, counts
+    ks, rks = s["px"]["ks"], s["recs"]["ks"]
+    for kss in (ks, rks):
+        assert (kss == 0).all(1).any()                       # no phong
+        assert ((kss[:, 0] == 0) & (kss[:, 1] > 0)).any()   # ks.x-only pdf
+    assert ((s["px"]["kd"] == 0).all(1) & (ks > 0).all(1)).any()
+    assert ((s["recs"]["kd"] == 0).all(1) & (rks == 0).all(1)).any()
 
 
 def test_wrapper_dispatch_and_checks(group):

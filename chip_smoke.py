@@ -13,11 +13,16 @@ full-size groups of the VSL frame, after a phase (vsl_work_shape) that
 prints the shape of its work there: the lane efficiency of four work
 layouts, the share of samples in which each strategy's guard holds, the
 share of pairs without a phong lobe, and the operations the inputs need,
-from which its operations bound is counted.  traverse.cu, the
-default traversal, is held to the skip-pointer walk traverse_plain exactly
-(t, prim, u, v), on the samples, on a sample of each cast kind of the
-"ours" and VSL frames and on every recorded PT cast; a ray on which they
-differ must be proven a box graze (box_grazes) and is printed.  It drives
+from which its operations bound is counted.  The three traversal kernels
+are held to the skip-pointer walk traverse_plain exactly (t, prim, u, v)
+and to their own walks' plain versions, on three ray samples, after a
+phase (traversal_work_shape) that prints the shape of each walk's work
+there: box and triangle tests, the packet's node efficiency, the
+two-level loop's inner and drain lane efficiency.  traverse.cu, the
+default traversal, is also held to traverse_plain on a sample of each cast
+kind of the "ours" and VSL frames, and all three on every recorded PT cast;
+a ray on which they differ fails the run, printed with the box graze that
+explains it if there is one (box_grazes).  It drives
 these paths through the port's CLI at full size (1280x720), each with
 every kernel count set to 0 just before and read just after: the EVPLP
 "ours" photonfam
@@ -28,8 +33,9 @@ forceVsl), the path-tracing config `configs/box_field/box_field_pt.json`
 (3 bounces, 1 spp), and the PM and VPL configs `box_field_pm.json` and
 `box_field_vpl.json`, for the frames their constants say, each plus the
 warm-up.  It renders the same full-size PT frame under each value of the
-traversal switch `trace/intersect.py:PACKET_IMPL` and holds the three
-kernels to each other cast by cast.  It checks the outputs and the kernels
+traversal switch `trace/intersect.py:PACKET_IMPL`, holds the three
+kernels to each other cast by cast, and the three images to each other bit
+for bit.  It checks the outputs and the kernels
 each path launched, times each pass, and renders small references on the
 card (the Cornell goldens, and 64x36 box_field frames against the same
 frames on the CPU).  Each phase prints one line; any failure raises and
@@ -61,8 +67,10 @@ CORNELL = os.path.join(HERE, "configs", "cornell")
 PT_FRAMES = 3            # timed PT frames through the CLI (+ the warm-up)
 SAMPLE_RAYS = 65_536
 # camera ray of the PT frame that grazes a leaf box's silhouette (ROADMAP
-# queue 3, fault 3): #1 must report triangle 24,327 at t = 3.7943268
+# queue 3, fault 3): traverse_plain and every kernel must report triangle
+# FAULT3_PRIM at t = 3.7943268
 FAULT3_RAY = 806_878
+FAULT3_PRIM = 24_327
 # live rays of each PT cast whose walks are counted for the frame's
 # operations bound (a strided sample, scaled to the cast's live rays)
 FRAME_OPS_SAMPLE = 4096
@@ -76,33 +84,32 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # float operations of the traversal walks' inner steps, counted from
-# csrc/traverse.cu, packet.cu and packet7.cu: one slab test (6 sub, 6 mul,
-# 10 min/max, 3 compares) and one Moller-Trumbore test (53
-# add/mul/div/compare); packet7.cu's inner step adds to its two slab tests
-# 20 compares and selects of its leaf and near-child steering; a step of
-# traverse.cu's ordered walk is two slab tests plus 10 (the leaf box's
-# widening, the near-first compare and the selects of the push or pop)
+# csrc/ray_common.cuh: one slab test (6 sub, 6 mul, 10 min/max, 3
+# compares) and one Moller-Trumbore test (53 add/mul/div/compare); a step
+# of the ordered walk over the walk records (every kernel's) is two slab
+# tests plus 10 (the leaf box's widening, the near-first compare and the
+# selects of the push or pop)
 SLAB_OPS = 25
 TRI_OPS = 53
-P7_STEER_OPS = 20
 WALK_STEP_OPS = 2 * SLAB_OPS + 10
 # bytes a ray moves: o, d, t_min, t_max in; t, prim, u, v out
 RAY_BYTES = 48
-# the three traversal kernels: module, CUDA wrapper, plain version (the
-# reference it is held to), the walk it takes (of WALKS), the PACKET_IMPL
-# value that selects it, its source and the TPU kernel it replaces
+# the three traversal kernels, each held to traverse_plain: module, CUDA
+# wrapper, the walk it takes (of WALKS, whose plain version takes its
+# steps), the walk its wrapper runs on the CPU (its plain version, timed),
+# the PACKET_IMPL value that selects it, its source and the TPU kernel it
+# replaces
 TRAVERSALS = {
     "bvh_traverse": dict(module="traverse", cuda="traverse_cuda",
-                         plain="traverse_plain", walk="ordered",
-                         impl="packet3",
+                         walk="ordered", plain="skip_pointer", impl="packet3",
                          source="evplp_tpu_torch/csrc/traverse.cu",
                          replaces="evplp_tpu/trace/packet3.py:63"),
-    "packet7": dict(module="packet7", cuda="packet7_cuda",
-                    plain="packet7_plain", walk="packet7", impl="packet7",
+    "packet7": dict(module="packet7", cuda="packet7_cuda", walk="packet7",
+                    plain="packet7", impl="packet7",
                     source="evplp_tpu_torch/csrc/packet7.cu",
                     replaces="evplp_tpu/trace/packet7.py:48"),
-    "packet": dict(module="packet", cuda="packet_cuda",
-                   plain="packet_plain", walk="packet", impl="packet",
+    "packet": dict(module="packet", cuda="packet_cuda", walk="packet",
+                   plain="packet", impl="packet",
                    source="evplp_tpu_torch/csrc/packet.cu",
                    replaces="evplp_tpu/trace/packet.py:53"),
 }
@@ -114,10 +121,10 @@ WALKS = {"skip_pointer": ("traverse", "traverse_plain"),
          "packet7": ("packet7", "packet7_plain"),
          "packet": ("packet", "packet_plain")}
 KERNELS = tuple(TRAVERSALS) + ("vsl_sample",)
-# the PT frames under the three traversal kernels: pixels whose channels
-# differ beyond rtol 1e-4 / atol 1e-5, at most this many (a t-tie may pick
-# another triangle under packet7's near-child-first order)
-PT_IMPL_RTOL, PT_IMPL_ATOL, PT_IMPL_MAX_PIXELS = 1e-4, 1e-5, 9
+# the PT frames under the three traversal kernels: pixels that differ at
+# all, at most this many (the kernels equal traverse_plain ray for ray, so
+# the frames are bit-equal)
+PT_IMPL_MAX_PIXELS = 0
 # operations of the VSL sample kernel, counted from csrc/vsl_sample.cu;
 # sin, cos, pow and sqrt count as one operation each and a negation as none
 # (an operand modifier), so every bound is a lower bound.  The count of
@@ -224,23 +231,19 @@ def ray_sets(scene, width, height, torch):
 
 
 def scene_bytes(name, tris, bvh) -> int:
-    """Bytes of the scene arrays a traversal kernel reads, each once."""
-    if name == "bvh_traverse":   # 64-byte node and 48-byte triangle records
-        return 64 * bvh.walk_nodes.shape[0] + 48 * bvh.walk_tris.shape[0]
-    n = bvh.node_min.shape[0]
-    if name == "packet7":   # pk_bounds, pk_meta, pk_tri_rows
-        return 48 * n + 512 * bvh.pk_tri_rows.shape[0]
-    return 36 * (n + tris.v0.shape[0])   # node arrays, v0/e1/e2
+    """Bytes of the scene arrays a traversal kernel reads, each once: the
+    64-byte node and 48-byte triangle records of the walk, which all three
+    read."""
+    return 64 * bvh.walk_nodes.shape[0] + 48 * bvh.walk_tris.shape[0]
 
 
 def walk_ops(walk, work) -> int:
-    """Operations of a walk, from its plain version's counts: box tests and
-    ray-triangle tests (packet7: two box tests and the steering per inner
-    step; ordered: WALK_STEP_OPS per step)."""
-    if walk == "ordered":
+    """Operations of a walk, from its plain version's counts: box tests
+    ("slabs", the skip-pointer walk) or steps of two ("steps", the walks
+    over the walk records), and ray-triangle tests."""
+    if "steps" in work:
         return WALK_STEP_OPS * work["steps"] + TRI_OPS * work["tris"]
-    slab = SLAB_OPS + (P7_STEER_OPS // 2 if walk == "packet7" else 0)
-    return slab * work["slabs"] + TRI_OPS * work["tris"]
+    return SLAB_OPS * work.get("slabs", 0) + TRI_OPS * work["tris"]
 
 
 def run_walk(walk, tris, bvh, o, d, lo, hi, any_hit) -> tuple:
@@ -264,19 +267,6 @@ def least_walk_ops(tris, bvh, o, d, lo, hi, any_hit) -> tuple:
     return ops[walk], walk
 
 
-def mismatched(k, p, t_min, t_max, any_hit):
-    """Bool mask of the rays on which two traversal results (t, prim, u, v)
-    disagree.  Closest hits: hit and miss differ, or both hit with t apart
-    beyond rtol 1e-4 (on a t-tie either prim may win: coplanar
-    duplicates).  Any hit: the occlusion of a live lane differs."""
-    import torch
-    if any_hit:
-        return (t_max > t_min) & ((k[1] >= 0) != (p[1] >= 0))
-    both = (k[1] >= 0) & (p[1] >= 0)
-    return ((k[1] >= 0) != (p[1] >= 0)) | (both & ~torch.isclose(
-        k[0], p[0], rtol=1e-4, atol=0.0))
-
-
 def differs(k, p, t_min, t_max, any_hit):
     """Bool mask of the rays on which two results of the traversal
     function differ at all: t, prim, u or v (closest hits), the occlusion
@@ -286,17 +276,6 @@ def differs(k, p, t_min, t_max, any_hit):
         return (t_max > t_min) & ((k[1] >= 0) != (p[1] >= 0))
     return ((k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])
             | (k[3] != p[3]))
-
-
-def hits_agree(k, p, t_min, t_max, any_hit) -> tuple:
-    """(agree, max |t| error of the closest hits, prims that differ on a
-    t-tie)."""
-    bad = mismatched(k, p, t_min, t_max, any_hit)
-    if any_hit:
-        return not bool(bad.any()), 0.0, 0
-    both = (k[1] >= 0) & (p[1] >= 0)
-    return (not bool(bad.any()), float((k[0] - p[0]).abs().max()),
-            int((both & (k[1] != p[1])).sum()))
 
 
 def box_grazes(bvh, o, d, a, b, rays, leaf_a, leaf_b, any_hit) -> list:
@@ -377,95 +356,123 @@ def box_grazes(bvh, o, d, a, b, rays, leaf_a, leaf_b, any_hit) -> list:
     return out
 
 
-def walk1_leaf_test() -> tuple:
-    """Kernel #1's leaf-box test, as box_grazes takes it."""
-    from evplp_tpu_torch.trace.traverse import LEAF_WIDEN, LEAF_WIDEN_T
-    return LEAF_WIDEN, LEAF_WIDEN_T
-
-
 def exact_check(label, bvh, o, d, lo, hi, any_hit, k, p) -> dict:
-    """Hold kernel #1's result k to traverse_plain's p on every ray: equal
-    t (bit for bit), prim, u and v, or for any hit equal occlusion.  Rays
-    that differ must be proven box grazes (box_grazes), which are counted
-    and printed; a tie prim (equal t, another prim) that is not a graze
-    fails like any other difference.  Returns the counts."""
+    """Hold a traversal kernel's result k to traverse_plain's p on every
+    ray: equal t (bit for bit), prim, u and v, or for any hit equal
+    occlusion.  Any ray that differs fails the check; the first 20 are
+    printed first, with the proof that each is a box graze where
+    box_grazes finds one (a diagnostic: a graze excuses nothing).  Returns
+    the counts."""
     import torch
+    from evplp_tpu_torch.trace.traverse import LEAF_WIDEN, LEAF_WIDEN_T
     rays = torch.nonzero(differs(k, p, lo, hi, any_hit)).squeeze(1).tolist()
-    proofs = box_grazes(bvh, o, d, k, p, rays, walk1_leaf_test(), None,
-                        any_hit)
-    grazes = [x for x in proofs if x is not None]
-    bad = [i for i, x in zip(rays, proofs) if x is None]
-    ties = sum(1 for i in bad if not any_hit and float(k[0][i]) == float(
-        p[0][i]) and int(k[1][i]) != int(p[1][i]))
+    proofs = box_grazes(bvh, o, d, k, p, rays[:20],
+                        (LEAF_WIDEN, LEAF_WIDEN_T), None, any_hit)
     both = (k[1] >= 0) & (p[1] >= 0)
     out = dict(rays=o.shape[0], any_hit=any_hit, differing=len(rays),
-               grazes=len(grazes), tie_prims=ties, unexplained=len(bad),
                max_abs_err=0.0 if any_hit or not bool(both.any()) else
                float((k[0] - p[0])[both].abs().max()))
-    for g in grazes:
-        phase("box_graze", check=label, **g)
-    if bad:
-        i = bad[:4]
+    for i, proof in zip(rays[:20], proofs):
+        phase("differing_ray", check=label, ray=i, any_hit=any_hit,
+              kernel=[float(k[0][i]), int(k[1][i])],
+              plain=[float(p[0][i]), int(p[1][i])], box_graze=proof)
+    if rays:
         raise AssertionError(
-            f"{label}: kernel #1 differs from traverse_plain on {len(bad)} "
-            f"rays that no box graze explains ({ties} tie prims): rays {i}, "
-            f"kernel {[(float(k[0][j]), int(k[1][j])) for j in i]}, "
-            f"plain {[(float(p[0][j]), int(p[1][j])) for j in i]}")
+            f"{label}: the kernel differs from traverse_plain on "
+            f"{len(rays)} rays ({sum(x is not None for x in proofs)} of the "
+            f"first {len(proofs)} box grazes): rays {rays[:4]}")
     return out
 
 
 def kernel_check(name, sets, scene, torch) -> dict:
-    """A traversal kernel against its plain version on each ray set (#1
-    exactly, by exact_check, and equal to its own walk's plain version;
-    #2 and #3 by hits_agree); returns the kernel's entry, with the bytes
-    bound and the operations of each walk it ran on each set
-    (traversal_bounds turns them into its bound)."""
+    """A traversal kernel against traverse_plain (exact_check) and against
+    its own walk's plain version (equal results) on each ray set; returns
+    the kernel's entry, with its plain version's time (the walk its
+    wrapper runs on the CPU), the bytes bound and the operations and
+    counts of each walk it ran on each set (traversal_bounds turns the
+    operations into its bound, traversal_work_shape prints the counts)."""
     mod = traversal_module(name)
     spec = TRAVERSALS[name]
     cuda_fn = getattr(mod, spec["cuda"])
-    ref_walk = next(w for w, (m, f) in WALKS.items()
-                    if (m, f) == (spec["module"], spec["plain"]))
     entry = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, bytes_ms={},
-                 ops={})
+                 ops={}, counts={})
     phase_name = "kernel_check" if name == "bvh_traverse" else \
         f"{name}_kernel_check"
     for set_name, (o, d, lo, hi, any_hit) in sets.items():
         args = (scene.tris, scene.bvh, o, d, lo, hi, any_hit)
         k = cuda_fn(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p, ref_ops, ref_work = run_walk(ref_walk, *args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1000.0
-        ops, counts = {ref_walk: ref_ops}, {ref_walk: ref_work}
-        if name == "bvh_traverse":
-            w, ops[spec["walk"]], counts[spec["walk"]] = run_walk(
-                spec["walk"], *args)
-            if bool(differs(k, w, lo, hi, False).any()):
-                raise AssertionError(f"{name} kernel differs from walk_plain "
-                                     f"on {set_name}")
-            check = exact_check(f"{phase_name}/{set_name}", scene.bvh, o, d,
-                                lo, hi, any_hit, k, p)
-            err, tie_prims = check["max_abs_err"], check["tie_prims"]
-        else:
-            ok, err, tie_prims = hits_agree(k, p, lo, hi, any_hit)
-            check = dict(rays=o.shape[0], match=ok)
-            if not ok:
-                raise AssertionError(f"{name} kernel disagrees with plain "
-                                     f"on {set_name}")
+        walk_ms = {}
+        for walk in ("skip_pointer", spec["walk"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = run_walk(walk, *args)
+            torch.cuda.synchronize()
+            walk_ms[walk] = (time.perf_counter() - t0) * 1000.0
+            if walk == "skip_pointer":
+                p, ref_ops, ref_work = run
+        w, ops, counts = run
+        plain_ms = walk_ms[spec["plain"]]
+        if bool(differs(k, w, lo, hi, any_hit).any()):
+            raise AssertionError(f"{name} kernel differs from its walk's "
+                                 f"plain version on {set_name}")
+        check = exact_check(f"{phase_name}/{set_name}", scene.bvh, o, d,
+                            lo, hi, any_hit, k, p)
         ms = cuda_ms(lambda: cuda_fn(*args), reps=20)
         bytes_ms = (RAY_BYTES * o.shape[0] + scene_bytes(
             name, scene.tris, scene.bvh)) / PEAK_BYTES_PER_S * 1e3
-        check.update(max_abs_err=err, tie_prims=tie_prims)
+        walk_ops_ = {"skip_pointer": ref_ops, spec["walk"]: ops}
+        walk_counts = {"skip_pointer": ref_work, spec["walk"]: counts}
         phase(phase_name, set=set_name, **check, kernel_ms=ms,
-              plain_ms=plain_ms, walk_ops=ops, walk_counts=counts,
+              plain_ms=plain_ms, walk_ops=walk_ops_, walk_counts=walk_counts,
               bytes_bound_ms=bytes_ms)
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
         entry["bytes_ms"][set_name] = bytes_ms
-        entry["ops"][set_name] = ops
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["ops"][set_name] = walk_ops_
+        entry["counts"][set_name] = walk_counts
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   check["max_abs_err"])
     return entry
+
+
+def work_shape(counts) -> dict:
+    """The shape of the walks' work on one ray set, from their plain
+    versions' counts (walk -> counts): each walk's box and triangle tests
+    (as its lanes make them; "steps" are two box tests), and where the walk
+    counts them, the packet's node efficiency (the lanes' own wanted
+    records over 32 x the records the packet steps through), the lane
+    efficiency of the packet's single-ray walks (their passes over 32 x
+    the rounds the packets wait on them), and the two-level loop's lane
+    efficiency: of its inner loop (steps over 32 x the warp's steps) and
+    of its drains (triangle tests over 32 x the most of one lane, summed
+    over the drains)."""
+    ratios = (("node_efficiency", "lane_packet_steps", "packet_steps", 32),
+              ("solo_efficiency", "solo_passes", "solo_rounds", 32),
+              ("inner_efficiency", "steps", "inner_iters", 32),
+              ("drain_efficiency", "tris", "drain_paid", 1))
+    out = {}
+    for walk, c in counts.items():
+        x = dict(box_tests=c.get("slabs", 2 * c.get("steps", 0)),
+                 tri_tests=c["tris"])
+        for key, num, den, lanes in ratios:
+            if c.get(den):
+                x[key] = c[num] / (lanes * c[den])
+        out[walk] = dict(x, counts=c)
+    return out
+
+
+def middle_window(n, k) -> slice:
+    """The k consecutive indices in the middle of n."""
+    start = max((n - k) // 2, 0)
+    return slice(start, start + k)
+
+
+def traversal_work_shape(label, per_set: dict) -> dict:
+    """Step 0 of the traversal kernels' design, printed as one phase: the
+    work_shape of each walk on each ray set (set -> walk -> counts)."""
+    shapes = {s: work_shape(c) for s, c in per_set.items()}
+    phase("traversal_work_shape", sets=label, shape=shapes)
+    return shapes
 
 
 def traversal_bounds(entries: dict):
@@ -485,7 +492,7 @@ def traversal_bounds(entries: dict):
     bytes_ms = sum(x["bytes_ms"] for x in least.values())
     ops_ms = sum(x["ops"] for x in least.values()) / PEAK_F32_PER_S * 1e3
     for e in entries.values():
-        del e["bytes_ms"], e["ops"]
+        del e["bytes_ms"], e["ops"], e["counts"]
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         e["bound_ms"] = max(bytes_ms, ops_ms)
     phase("traversal_bound", per_set=least, bytes_bound_ms=bytes_ms,
@@ -1290,12 +1297,13 @@ def vsl_extra(entry):
 def pt_impls(torch) -> dict:
     """The full-size PT frame (run_pt, one timed frame plus the warm-up,
     same key) under each PACKET_IMPL value; each cast's inputs, recorded
-    in the packet3 run, give the same hits under the three kernels, and
-    the images agree but for at most PT_IMPL_MAX_PIXELS pixels.  The one
-    exception to the per-cast gate is a box graze (box_grazes), checked
-    ray by ray and counted.  Kernel #1 is held to traverse_plain on a
-    sample of every recorded cast (exact_check).  Returns each kernel's
-    launches in its own run."""
+    in the packet3 run, give the same hits (t, prim, u, v; any-hit
+    occlusion) under the three kernels on every ray, each kernel equals
+    traverse_plain on a sample of every cast (exact_check, with ray
+    FAULT3_RAY), and the three images are equal bit for bit (at most
+    PT_IMPL_MAX_PIXELS pixels differ).  Returns each kernel's launches in
+    its own run, and the walks' counts on each cast's sample of the
+    operations bound (for traversal_work_shape)."""
     import dataclasses
     import numpy as np
     from evplp_tpu_torch.runtime.loop import run_pt
@@ -1343,12 +1351,27 @@ def pt_impls(torch) -> dict:
                   live_rays_per_frame=per_frame["live_rays"])
     finally:
         intersect.PACKET_IMPL = "packet3"
-    # ---- per cast: #1 against traverse_plain on a sample of each cast
-    # (with ray FAULT3_RAY of the closest-hit casts), then #2 and #3 on the
-    # same recorded inputs ----
+    # ---- per cast: #2 and #3 against #1 on every ray of the recorded
+    # inputs, and all three against traverse_plain on a sample of each cast
+    # (with ray FAULT3_RAY of the closest-hit casts) ----
     from evplp_tpu_torch.trace.traverse import traverse_plain
-    exact = []
+    exact, gate, fault3 = [], {n: 0 for n in TRAVERSALS}, {}
     for ci, (o, d, lo, hi, any_hit, ref) in enumerate(casts):
+        got = {"bvh_traverse": ref}
+        for name in ("packet7", "packet"):
+            fn = getattr(traversal_module(name), TRAVERSALS[name]["cuda"])
+            got[name] = fn(scene.tris, scene.bvh, o, d, lo, hi, any_hit)
+            bad = torch.nonzero(differs(got[name], ref, lo, hi, any_hit)
+                                ).squeeze(1)
+            gate[name] += bad.numel()
+            if bad.numel():
+                i = bad[:4].tolist()
+                g, f = got[name], ref
+                raise AssertionError(
+                    f"{name} differs from bvh_traverse on {bad.numel()} rays "
+                    f"of PT cast {ci}: rays {i}, "
+                    f"{[(float(g[0][j]), int(g[1][j])) for j in i]} against "
+                    f"{[(float(f[0][j]), int(f[1][j])) for j in i]}")
         live = torch.nonzero(hi > lo).squeeze(1)
         idx = live[::max(1, live.numel() // CHECK_RAYS)][:CHECK_RAYS]
         if not any_hit and o.shape[0] > FAULT3_RAY:
@@ -1356,72 +1379,46 @@ def pt_impls(torch) -> dict:
                 [FAULT3_RAY], device=idx.device)]))
         sub = tuple(x[idx].contiguous() for x in (o, d, lo, hi))
         p = traverse_plain(scene.tris, scene.bvh, *sub, any_hit)
-        exact.append(exact_check(f"pt_cast_{ci}", scene.bvh, *sub, any_hit,
-                                 tuple(x[idx] for x in ref), p))
+        for name, k in got.items():
+            exact.append(exact_check(f"pt_cast_{ci}/{name}", scene.bvh, *sub,
+                                     any_hit, tuple(x[idx] for x in k), p))
         if ci == 0:
-            phase("fault3", cast=ci, ray=FAULT3_RAY, o=o[FAULT3_RAY].tolist(),
-                  d=d[FAULT3_RAY].tolist(),
-                  kernel=[float(ref[0][FAULT3_RAY]), int(ref[1][FAULT3_RAY])],
-                  plain=[float(p[0][idx == FAULT3_RAY][0]),
-                         int(p[1][idx == FAULT3_RAY][0])])
-    phase("pt_casts_exact", casts=len(casts),
+            at = idx == FAULT3_RAY
+            fault3 = dict(cast=ci, ray=FAULT3_RAY, o=o[FAULT3_RAY].tolist(),
+                          d=d[FAULT3_RAY].tolist(),
+                          plain=[float(p[0][at][0]), int(p[1][at][0])],
+                          **{n: [float(k[0][FAULT3_RAY]),
+                                 int(k[1][FAULT3_RAY])]
+                             for n, k in got.items()})
+            phase("fault3", **fault3)
+            if any(fault3[n][1] != FAULT3_PRIM for n in
+                   ["plain"] + list(TRAVERSALS)):
+                raise AssertionError(f"fault 3: {fault3}")
+    phase("pt_casts_exact", casts=len(casts), kernels=list(TRAVERSALS),
           rays=sum(c["rays"] for c in exact),
-          grazes=sum(c["grazes"] for c in exact),
-          tie_prims=sum(c["tie_prims"] for c in exact),
-          max_abs_err=max(c["max_abs_err"] for c in exact))
-    gate = {}
-    for name in ("packet7", "packet"):
-        fn = getattr(traversal_module(name), TRAVERSALS[name]["cuda"])
-        errs, ties, grazes, bad = [], 0, [], []
-        for ci, (o, d, lo, hi, any_hit, ref) in enumerate(casts):
-            got = fn(scene.tris, scene.bvh, o, d, lo, hi, any_hit)
-            rays = torch.nonzero(mismatched(got, ref, lo, hi, any_hit)
-                                 ).squeeze(1).tolist()
-            for i, proof in zip(rays, box_grazes(scene.bvh, o, d, got, ref,
-                                                 rays, (1.0, 1.0),
-                                                 walk1_leaf_test(),
-                                                 any_hit)):
-                (grazes if proof else bad).append(dict(
-                    cast=ci, ray=i, any_hit=any_hit, o=o[i].tolist(),
-                    d=d[i].tolist(), t_min=float(lo[i]), t_max=float(hi[i]),
-                    ref=[float(ref[0][i]), int(ref[1][i])],
-                    got=[float(got[0][i]), int(got[1][i])], proof=proof))
-            keep = torch.ones((o.shape[0],), dtype=torch.bool,
-                              device=o.device)
-            keep[rays] = False
-            _, err, tie_prims = hits_agree(
-                tuple(x[keep] for x in got), tuple(x[keep] for x in ref),
-                lo[keep], hi[keep], any_hit)
-            errs.append(err)
-            ties += tie_prims
-        gate[name] = dict(casts=len(casts), max_abs_t_err=max(errs),
-                          tie_prims=ties, box_grazes=len(grazes),
-                          graze_rays=grazes[:4], disagreeing=bad[:4])
-        if bad:
-            phase("pt_impls_casts", per_cast=gate)
-            raise AssertionError(f"{name} disagrees with bvh_traverse on "
-                                 f"{len(bad)} rays of the PT casts that no "
-                                 "box graze explains")
+          differing=sum(c["differing"] for c in exact),
+          max_abs_err=max(c["max_abs_err"] for c in exact),
+          rays_differing_from_bvh_traverse=gate)
     images = {}
     for name in ("packet7", "packet"):
-        outside = _outside(imgs[name], imgs["bvh_traverse"], PT_IMPL_RTOL,
-                           PT_IMPL_ATOL)
-        images[name] = dict(
-            max_abs_diff=float(np.abs(imgs[name] - imgs["bvh_traverse"])
-                               .max()),
-            pixels_outside=len(outside), positions=outside[:20])
+        diff = np.abs(imgs[name] - imgs["bvh_traverse"])
+        outside = [tuple(int(x) for x in q) for q in np.argwhere(
+            (imgs[name] != imgs["bvh_traverse"]).any(axis=-1))]
+        images[name] = dict(max_abs_diff=float(diff.max()),
+                            pixels_differing=len(outside),
+                            positions=outside[:20])
         if len(outside) > PT_IMPL_MAX_PIXELS:
             raise AssertionError(f"PT image under {name}: {len(outside)} "
-                                 "pixels outside the stated tolerance")
-    phase("pt_impls", per_cast=gate, images=images,
-          image_tolerance=dict(rtol=PT_IMPL_RTOL, atol=PT_IMPL_ATOL,
-                               max_pixels=PT_IMPL_MAX_PIXELS))
+                                 "pixels differ from packet3's")
+    phase("pt_impls", images=images, max_pixels=PT_IMPL_MAX_PIXELS)
     # ---- the timed frame's operations bound, shared by the three kernels:
     # per cast, the fewest walk operations on a strided sample of its live
     # rays, scaled to all of them ----
     t0 = time.perf_counter()
-    ops, walks = 0.0, []
-    for o, d, lo, hi, any_hit, _ in casts[len(casts) // 2:]:
+    ops, walks, counts = 0.0, [], {}
+    for ci, (o, d, lo, hi, any_hit, _) in enumerate(casts):
+        if ci < len(casts) // 2:
+            continue
         live = torch.nonzero(hi > lo).squeeze(1)
         if live.numel() == 0:
             continue
@@ -1432,13 +1429,19 @@ def pt_impls(torch) -> dict:
                                      (o, d, lo, hi)), any_hit)
         ops += cast_ops * live.numel() / idx.numel()
         walks.append(walk)
+        # the kernels' walks on consecutive rays, as their warps take them
+        win = middle_window(o.shape[0], FRAME_OPS_SAMPLE)
+        counts[f"pt_cast_{ci}"] = {
+            w: run_walk(w, scene.tris, scene.bvh, *(
+                x[win].contiguous() for x in (o, d, lo, hi)), any_hit)[2]
+            for w in ("ordered", "packet7", "packet")}
     bound_ms = ops / PEAK_F32_PER_S * 1e3
     phase("pt_frame_bound", ops_per_frame=ops, ops_bound_ms=bound_ms,
           least_walk_per_cast=walks, sample_rays=FRAME_OPS_SAMPLE,
           kernel_ms_per_frame=kernel_ms,
           share_of_bound={n: bound_ms / ms for n, ms in kernel_ms.items()},
           wall_s=time.perf_counter() - t0)
-    return launches
+    return launches, counts
 
 
 def main() -> int:
@@ -1491,6 +1494,9 @@ def main() -> int:
     load_s = time.perf_counter() - t0
     sets = ray_sets(scene, job.width, job.height, torch)
     entries = {n: kernel_check(n, sets, scene, torch) for n in TRAVERSALS}
+    traversal_work_shape("samples", {
+        s: {w: c for e in entries.values() for w, c in e["counts"][s].items()}
+        for s in sets})
     traversal_bounds(entries)
     phase("kernel_check_done", triangles=scene.num_triangles,
           nodes=scene.bvh.node_min.shape[0], bvh_depth=scene.bvh.depth,
@@ -1555,8 +1561,10 @@ def main() -> int:
           ms_per_frame=passes, sum_ms=sum(passes.values()),
           wall_s=time.perf_counter() - t0)
     t0 = time.perf_counter()
-    for k, v in pt_impls(torch).items():
+    pt_launches, pt_counts = pt_impls(torch)
+    for k, v in pt_launches.items():
         launches[k] += v
+    traversal_work_shape("pt_casts", pt_counts)
     phase("pt_impls_done", wall_s=time.perf_counter() - t0)
 
     # ---- 7: the PM and VPL techniques through the CLI at full size ----

@@ -15,10 +15,12 @@ the traversals' slot ids are the triangle ids the shading tables use and
 both packages report the same prim ids.  The JAX package's fused-node and
 packed16 forms are TPU memory layouts and are not built.
 
-Every BVH also gets the layout of the port's own traversal kernel
-(`walk_layout`, csrc/traverse.cu): one 64-byte record per internal node
-holding both children's boxes and references, and one 48-byte record per
-triangle.  It is a bit-for-bit copy of the node and triangle arrays.
+Every BVH also gets the layout that the port's three traversal kernels
+read (`walk_layout`; csrc/traverse.cu, packet7.cu, packet.cu): one 64-byte
+record per internal node holding both children's boxes and references, and
+one 48-byte record per triangle.  It is a bit-for-bit copy of the node and
+triangle arrays; the packed layout and the skip-pointer arrays stay for the
+plain walks, the JAX comparisons and packet7's slot ids.
 """
 from __future__ import annotations
 
@@ -58,12 +60,15 @@ class BVH:
     slot (-1 = padding).  One-row dummies at or below BRUTE_FORCE_MAX_TRIS.
 
     walk_nodes: (M, 16) f32 and walk_tris: (T, 12) f32, the traversal
-    kernel's records (`walk_layout`).
+    kernels' records (`walk_layout`).
 
     rpl: slot rows per leaf.  fused_nodes: the JAX package would build this
     scene with fused node rows (above 280,000 triangles); its dispatch then
     runs only the packet3 kernel.  depth: the longest root-to-leaf path in
-    edges, which bounds the traversal stacks."""
+    edges, which bounds the traversal stacks.  slot_order: the packed
+    layout is present and node_first holds its slots (leaf_row *
+    ROW_TRIS), as in every packed BVH `build_bvh` makes (the JAX package's
+    pack-only build keeps the leaf order of its SAH build)."""
     node_min: torch.Tensor
     node_max: torch.Tensor
     node_skip: torch.Tensor
@@ -78,6 +83,7 @@ class BVH:
     rpl: int = 1
     fused_nodes: bool = False
     depth: int = 0
+    slot_order: bool = False
 
 
 def pack_for_packet(nmin, nmax, skip, first, count, v0p, v1p, v2p,
@@ -193,7 +199,7 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
 
 def walk_layout(nmin, nmax, skip, first, count, v0, e1, e2):
-    """The traversal kernel's records, as numpy: (nodes (M, 16) f32,
+    """The traversal kernels' records, as numpy: (nodes (M, 16) f32,
     tris (T, 12) f32).  Boxes and vertices are copied bit for bit.
 
     Node record 0 is a super-root whose left child is the root and whose
@@ -236,6 +242,10 @@ def bvh_from_arrays(arrays: dict, device) -> BVH:
     derived."""
     skip = np.asarray(arrays["node_skip"])
     count = np.asarray(arrays["node_count"])
+    meta = np.asarray(arrays["pk_meta"])
+    leaf = count > 0
+    slot_order = meta.shape[0] == count.shape[0] and bool(np.array_equal(
+        np.asarray(arrays["node_first"])[leaf], meta[leaf, 1] * ROW_TRIS))
     walk = walk_layout(*(np.asarray(arrays[k]) for k in NODE_KEYS + (
         "v0", "e1", "e2")))
     return BVH(**{k: torch.as_tensor(np.array(arrays[k]), device=device)
@@ -244,4 +254,4 @@ def bvh_from_arrays(arrays: dict, device) -> BVH:
                walk_tris=torch.as_tensor(walk[1], device=device),
                rpl=int(arrays["bvh_rpl"]),
                fused_nodes=bool(arrays["bvh_fused_nodes"]),
-               depth=tree_depth(skip, count))
+               depth=tree_depth(skip, count), slot_order=slot_order)

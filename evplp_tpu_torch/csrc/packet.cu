@@ -1,44 +1,65 @@
-// BVH ray traversal with one shared stack per packet, for Hopper (sm_90a):
-// closest hit and any hit.
+// BVH ray traversal by warp packets, for Hopper (sm_90a): closest hit and
+// any hit.
 //
 // Replaces the JAX package's Pallas kernel
 // evplp_tpu/trace/packet.py:_packet_kernel (entry packet_trace), the v1
-// packet traversal: a packet of 64 x 128 rays shares one node stack in SMEM,
-// every popped node is slab-tested against all its rays, and the packet
-// descends if any ray wants the node.  Here a packet is one warp (32
-// consecutive rays) and its stack of kStackDepth nodes lives in shared
-// memory; every lane computes the same stack pointer from warp votes:
-//   pop node; each lane slab-tests it against its own (t_min, t);
-//   wanted = __any_sync of the lanes' wants (a lane that is not traced, or
-//     with any hit already hit, wants nothing);
-//   wanted leaf: every lane tests every triangle of the leaf in order with
-//     tt in (t_min, t) and tt < best (any hit: only while it has no hit),
-//     whether or not its own box test passed, as the TPU kernel does;
-//   wanted internal node: push the right child skip[node + 1], then the left
-//     child node + 1, so the left is popped first (depth-first order);
-//   any hit: the packet stops when __all_sync says every lane has a hit or
-//     is not traced.
-// A leaf is tested only when some lane's slab test enters its box;
-// traverse.cu tests a leaf without its box, so at a box's silhouette edge,
-// to within rounding, the two can report different hits.
-// Lanes with t_max <= t_min, and the lanes past the last ray, are not
-// traced and report t = t_max, prim = -1.
+// packet traversal: a packet of rays shares one node stack, every popped
+// node is tested against all its rays, and the packet descends if any ray
+// wants the node.  Here a packet is one warp of 32 consecutive rays, and
+// it computes the function of the JAX CPU walk `_traverse_one` (and of
+// evplp_tpu_torch/trace/traverse.py:traverse_plain) exactly, as
+// traverse.cu does: the least t in (t_min, t_max), the least slot on ties,
+// with t, prim, u and v equal bit for bit; any hit stops at a ray's first
+// hit; lanes with t_max <= t_min are not traced and report t = t_max,
+// prim = -1.
 //
-// Inputs are the skip-pointer node arrays and the slot-ordered triangle SoA
-// of evplp_tpu_torch/accel/bvh.py and scene/scene.py, the arrays traverse.cu
-// reads.  The plain PyTorch version
-// (evplp_tpu_torch/trace/packet.py:packet_plain) runs the same walk, packet
-// by packet.
+// What bounds it on an H100: not bytes.  The walk records of a
+// ~24k-triangle scene (1.7 MB) stay in the 50 MB L2; the ray I/O is all
+// that must cross HBM.  Its time is set by the dependent loads along the
+// packet's path and by the lanes that sit out each step.  What the design
+// does about it:
+//   * One step reads one walk record (evplp_tpu_torch/accel/bvh.py:
+//     walk_layout): both children's boxes and references in 64 bytes, at
+//     one address for the whole warp, so a coherent packet pays one load
+//     per step for 32 rays.
+//   * Each lane tests both children against its own (t_min, t) and culls
+//     leaves by its own conservative test (ray_common.cuh leaf_admits), so
+//     every lane walks its own walk, whatever its packet-mates want: the
+//     packet only shares the records.  Lanes outside the step's mask, the
+//     lanes that wanted the node, do no work on it.  The packet visits
+//     nodes in another order than a lane's own near-first walk, so it tests
+//     internal boxes and stacked nodes at t * kLeafWidenT (test_children
+//     kWide): exactly, a tie hit found first could cull the box of a
+//     coincident triangle of a lower slot whose t_near rounds above t.
+//   * __ballot_sync gives the masks of the lanes that want each child.
+//     The packet descends into the child that more of its wanting lanes
+//     reach first (by t_near) and pushes the other with its mask on a
+//     stack in shared memory; each lane keeps its own t_near of every
+//     stacked node, and a popped node keeps only the lanes whose t still
+//     admits it.
+//   * A wanted leaf is tested by the lanes whose own leaf test passed, the
+//     leaf more lanes reach first first; each lane keeps the least
+//     (t, slot) (ray_common.cuh test_leaf), so the visiting order never
+//     changes a result.  (Copying a leaf's triangles to shared memory for
+//     the lanes that test it was measured 3-7% slower; PERF.md.)
+//   * When fewer than kSolo lanes want a node, each of them walks that
+//     subtree alone with ray_common.cuh's one-ray walk (its own stack and
+//     leaf queue), and the packet resumes after that: the hybrid of
+//     Benthin, Wald et al., "Combining Single and Packet Ray Tracing for
+//     Arbitrary Ray Distributions on the Intel MIC Architecture" (2012).
+//     On the H100 the packet pays only while every lane wants the node:
+//     kSolo = 32 was the fastest of 0, 4, 8, 12, 16, 24 and 32 on the
+//     bounce and shadow samples and the PT frame, and within the spread on
+//     primary rays (PERF.md), so the packet shares the records of the top
+//     of the tree, where coherent rays agree, and each lane walks on alone
+//     where they part.
+//   * Any hit: a lane leaves every mask at its first hit; the packet ends
+//     when no lane wants a stacked node.
 //
-// Numerics as in traverse.cu: -fmad=false, and the slab and triangle tests
-// of ray_common.cuh (sums ((x + y) + z), IEEE division, |det| > 1e-9).
-//
-// What bounds it on an H100: node and triangle loads are warp-uniform (one
-// address per warp, broadcast), so a coherent packet moves few bytes; an
-// incoherent packet visits the union of its rays' nodes, and every lane
-// pays for every node and triangle any lane wants.  Its time is set by the
-// length of that union and by the dependent loads along it; the ray I/O is
-// all that must move through HBM.
+// Numerics as in traverse.cu: -fmad=false, and the tests of ray_common.cuh
+// (sums ((x + y) + z), IEEE division, |det| > 1e-9).  The plain PyTorch
+// version (evplp_tpu_torch/trace/packet.py:packet_plain) takes the same
+// steps, packet by packet.
 //
 // C interface: the wrapper allocates every output, launches on PyTorch's
 // current stream, and checks the returned cudaGetLastError().
@@ -49,29 +70,33 @@ namespace {
 
 using evplp::Ray;
 using evplp::Rays;
+using evplp::Walk;
 
 constexpr int kWarps = 4;
 constexpr int kBlock = 32 * kWarps;
-constexpr int kStackDepth = 96;
 constexpr unsigned kFull = 0xffffffffu;
+// a node that fewer than kSolo lanes want is walked by each of them alone
+// (trace/packet.py SOLO; 0: a pure packet)
+constexpr int kSolo = 32;
 
-struct Scene {
-  const float* __restrict__ nmin;   // (N, 3)
-  const float* __restrict__ nmax;   // (N, 3)
-  const int* __restrict__ skip;     // (N,)
-  const int* __restrict__ first;    // (N,)
-  const int* __restrict__ count;    // (N,)
-  const float* __restrict__ v0;     // (T, 3)
-  const float* __restrict__ e1;     // (T, 3)
-  const float* __restrict__ e2;     // (T, 3)
-};
+// Whether the packet takes the left child first: the lanes that want only
+// one child vote for it, the lanes that want both for the nearer (left on
+// equal t_near); left wins a tie of votes.
+__device__ __forceinline__ bool left_first(bool want_l, bool want_r,
+                                           float nl, float nr) {
+  const int l = __popc(__ballot_sync(kFull, want_l && (!want_r || nl <= nr)));
+  const int r = __popc(__ballot_sync(kFull, want_r && (!want_l || nr < nl)));
+  return l >= r;
+}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
-packet_kernel(Scene s, Rays r) {
-  __shared__ int stacks[kWarps][kStackDepth];
-  int* stack = stacks[threadIdx.x / 32];
-  const int lane = threadIdx.x % 32;
+packet_kernel(Walk s, Rays r) {
+  __shared__ int stack_ref[kWarps][evplp::kStackDepth];
+  __shared__ unsigned stack_mask[kWarps][evplp::kStackDepth];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* sref = stack_ref[warp];
+  unsigned* smask = stack_mask[warp];
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool in_range = i < r.num_rays;
   // lanes past the last ray: a ray that is not traced (t_max <= t_min)
@@ -79,49 +104,73 @@ packet_kernel(Scene s, Rays r) {
       ? evplp::load_ray(r, i)
       : evplp::make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 1.0f);
   float t = in_range ? r.t_max[i] : 0.0f;
-  const bool live = t > ray.lo;
   int prim = -1;
   float hu = 0.0f, hv = 0.0f;
+  float stack_near[evplp::kStackDepth];  // this lane's t_near of each entry
 
-  if (lane == 0) stack[0] = 0;
-  __syncwarp();
-  int sp = __any_sync(kFull, live) ? 1 : 0;
-  while (sp > 0) {
-    --sp;
-    const int node = stack[sp];
-    const int b = 3 * node;
-    bool want = live && evplp::slab_enter(ray, s.nmin[b], s.nmin[b + 1],
-                                          s.nmin[b + 2], s.nmax[b],
-                                          s.nmax[b + 1], s.nmax[b + 2], t);
-    if (kAnyHit) want = want && prim < 0;
-    const bool wanted = __any_sync(kFull, want);
-    const int cnt = s.count[node];
-    if (wanted && cnt > 0) {
-      const int f = s.first[node];
-      for (int k = 0; k < cnt; ++k) {
-        const int j = 3 * (f + k);
-        float tt, uu, vv;
-        bool ok = evplp::ray_tri(ray, s.v0 + j, s.e1 + j, s.e2 + j, t, tt, uu,
-                                 vv);
-        if (kAnyHit) ok = ok && prim < 0;
-        if (ok) {
-          t = tt;
-          prim = f + k;
-          hu = uu;
-          hv = vv;
-        }
+  int cur = 0, sp = 0;  // the current record (-1: pop) and the stack size
+  unsigned mask = __ballot_sync(kFull, t > ray.lo);
+  while (true) {
+    if (cur < 0) {
+      mask = 0;
+      while (sp > 0 && mask == 0) {
+        --sp;
+        const bool mine = (smask[sp] >> lane) & 1u;
+        const bool keep = stack_near[sp] <= t * evplp::kLeafWidenT;
+        mask = __ballot_sync(kFull, mine && keep && (!kAnyHit || prim < 0));
+        cur = sref[sp];
       }
+      if (mask == 0) break;
     }
-    if (wanted && cnt == 0) {
-      __syncwarp();  // every lane has read stack[sp]
+    const bool in = (mask >> lane) & 1u;
+    if (__popc(mask) < kSolo) {
+      if (in) evplp::walk<kAnyHit, true>(s, ray, cur, t, prim, hu, hv);
+      cur = -1;
+      continue;
+    }
+    // one packet step at record cur
+    float nl, nr;
+    bool want_l, want_r;
+    const int4 m =
+        evplp::test_children<true>(s, ray, cur, t, nl, nr, want_l, want_r);
+    const bool leaf_l = m.x < 0, leaf_r = m.y < 0;
+    want_l = want_l && in;
+    want_r = want_r && in;
+    const bool lw_l = want_l && leaf_l, lw_r = want_r && leaf_r;
+    if (__any_sync(kFull, lw_l || lw_r)) {
+      const bool lf = left_first(lw_l, lw_r, nl, nr);
+      if (lf ? lw_l : lw_r)
+        evplp::test_leaf<kAnyHit>(s, ray, ~(lf ? m.x : m.y), lf ? m.z : m.w,
+                                  t, prim, hu, hv);
+      // the second leaf, if t still admits it
+      if ((lf ? lw_r : lw_l) && (lf ? nr : nl) <= t * evplp::kLeafWidenT &&
+          (!kAnyHit || prim < 0))
+        evplp::test_leaf<kAnyHit>(s, ray, ~(lf ? m.y : m.x), lf ? m.w : m.z,
+                                  t, prim, hu, hv);
+    }
+    const bool alive = !kAnyHit || prim < 0;
+    const bool go_l = want_l && !leaf_l && alive;
+    const bool go_r = want_r && !leaf_r && alive;
+    const unsigned ml = __ballot_sync(kFull, go_l);
+    const unsigned mr = __ballot_sync(kFull, go_r);
+    if (ml && mr) {
+      const bool lf = left_first(go_l, go_r, nl, nr);
+      __syncwarp();  // every lane has read the entry this one overwrites
       if (lane == 0) {
-        stack[sp] = s.skip[node + 1];  // right child
-        stack[sp + 1] = node + 1;      // left child, popped first
+        sref[sp] = lf ? m.y : m.x;
+        smask[sp] = lf ? mr : ml;
       }
+      stack_near[sp] = lf ? nr : nl;
+      ++sp;
       __syncwarp();
-      sp += 2;
+      cur = lf ? m.x : m.y;
+      mask = lf ? ml : mr;
+    } else if (ml | mr) {
+      cur = ml ? m.x : m.y;
+      mask = ml | mr;
+    } else {
+      cur = -1;
     }
-    if (kAnyHit && __all_sync(kFull, prim >= 0 || !live)) sp = 0;
   }
   if (in_range) {
     r.t[i] = t;
@@ -131,43 +180,29 @@ packet_kernel(Scene s, Rays r) {
   }
 }
 
-template <bool kAnyHit>
-int launch(const void* nmin, const void* nmax, const void* skip,
-           const void* first, const void* count, const void* v0,
-           const void* e1, const void* e2, const void* o, const void* d,
-           const void* t_min, const void* t_max, int num_rays, void* t,
-           void* prim, void* u, void* v, void* stream) {
-  Scene s{static_cast<const float*>(nmin), static_cast<const float*>(nmax),
-          static_cast<const int*>(skip),   static_cast<const int*>(first),
-          static_cast<const int*>(count),  static_cast<const float*>(v0),
-          static_cast<const float*>(e1),   static_cast<const float*>(e2)};
-  Rays r{static_cast<const float*>(o),     static_cast<const float*>(d),
-         static_cast<const float*>(t_min), static_cast<const float*>(t_max),
-         num_rays,                         static_cast<float*>(t),
-         static_cast<int*>(prim),          static_cast<float*>(u),
-         static_cast<float*>(v)};
-  const int grid = (num_rays + kBlock - 1) / kBlock;
-  packet_kernel<kAnyHit>
-      <<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(s, r);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-extern "C" int evplp_packet_closest(
-    const void* nmin, const void* nmax, const void* skip, const void* first,
-    const void* count, const void* v0, const void* e1, const void* e2,
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    int num_rays, void* t, void* prim, void* u, void* v, void* stream) {
-  return launch<false>(nmin, nmax, skip, first, count, v0, e1, e2, o, d,
-                       t_min, t_max, num_rays, t, prim, u, v, stream);
-}
-
-extern "C" int evplp_packet_any(
-    const void* nmin, const void* nmax, const void* skip, const void* first,
-    const void* count, const void* v0, const void* e1, const void* e2,
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    int num_rays, void* t, void* prim, void* u, void* v, void* stream) {
-  return launch<true>(nmin, nmax, skip, first, count, v0, e1, e2, o, d,
-                      t_min, t_max, num_rays, t, prim, u, v, stream);
+extern "C" int evplp_packet(const void* nodes, const void* tris,
+                            const void* o, const void* d, const void* t_min,
+                            const void* t_max, int num_rays, void* t,
+                            void* prim, void* u, void* v, int any_hit,
+                            void* stream) {
+  const Walk s{static_cast<const float4*>(nodes),
+               static_cast<const float4*>(tris)};
+  const Rays r{static_cast<const float*>(o),
+               static_cast<const float*>(d),
+               static_cast<const float*>(t_min),
+               static_cast<const float*>(t_max),
+               num_rays,
+               static_cast<float*>(t),
+               static_cast<int*>(prim),
+               static_cast<float*>(u),
+               static_cast<float*>(v)};
+  const int grid = (num_rays + kBlock - 1) / kBlock;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (any_hit)
+    packet_kernel<true><<<grid, kBlock, 0, st>>>(s, r);
+  else
+    packet_kernel<false><<<grid, kBlock, 0, st>>>(s, r);
+  return static_cast<int>(cudaGetLastError());
 }

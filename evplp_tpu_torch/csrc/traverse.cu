@@ -50,6 +50,8 @@
 //     that found it; persistent warps that take their rays from a global
 //     counter were measured within the 1-3% run-to-run spread of a plain
 //     grid, so the grid stays (PERF.md).
+//   The walk, its step and its tests are ray_common.cuh's, shared with
+//   packet.cu and packet7.cu.
 //
 // Built with -fmad=false so that no multiply-add is fused and every float
 // operation rounds as the plain PyTorch ops do; triangle test sums in the
@@ -64,138 +66,12 @@ namespace {
 
 using evplp::Ray;
 using evplp::Rays;
+using evplp::Walk;
 
-// 128 threads a block (47 / 56 registers for any / closest hit, no
+// 128 threads a block (46 / 48 registers for any / closest hit, no
 // spills); 64, 256, and 128 capped at 40 registers by __launch_bounds__
 // were measured within the run-to-run spread (PERF.md)
 constexpr int kBlock = 128;
-constexpr int kStackDepth = 64;  // trace/traverse.py STACK_DEPTH
-constexpr int kQueueCap = 8;
-// float32 roundings of 1 + 2 gamma_3 and (1 + 2 gamma_3)^2 (trace/traverse.py
-// LEAF_WIDEN, LEAF_WIDEN_T)
-constexpr float kLeafWiden = 1.0f + 0x3p-23f;
-constexpr float kLeafWidenT = 1.0f + 0x6p-23f;
-
-struct Walk {
-  const float4* __restrict__ nodes;  // (M, 16) f32 = 4 float4 per record
-  const float4* __restrict__ tris;   // (T, 12) f32 = 3 float4 per triangle
-};
-
-// The conservative leaf-box test on the slab interval [t_near, t_far].
-__device__ __forceinline__ bool leaf_admits(float t_near, float t_far,
-                                            float t) {
-  return t_near <= t_far * kLeafWiden && t_far >= 0.0f &&
-         t_near <= t * kLeafWidenT;
-}
-
-// Test the count triangles from first; keep the least (t, slot).  Returns
-// true at an any-hit walk's first hit.
-template <bool kAnyHit>
-__device__ __forceinline__ bool test_leaf(const Walk& s, const Ray& r,
-                                          int first, int count, float& t,
-                                          int& prim, float& hu, float& hv) {
-  for (int k = 0; k < count; ++k) {
-    const float4* p = s.tris + 3 * (first + k);
-    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-    float tt, uu, vv;
-    if (evplp::ray_tri<true>(r, a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z,
-                             t, tt, uu, vv) &&
-        (tt < t || first + k < prim)) {
-      t = tt;
-      prim = first + k;
-      hu = uu;
-      hv = vv;
-      if (kAnyHit) return true;
-    }
-  }
-  return false;
-}
-
-// Per-thread walk state: the node stack (record, t_near) and the queue of
-// postponed leaves (first, count, t_near).
-struct State {
-  int cur, sp, qn;
-  int stack_ref[kStackDepth];
-  float stack_near[kStackDepth];
-  int queue_first[kQueueCap], queue_count[kQueueCap];
-  float queue_near[kQueueCap];
-};
-
-__device__ __forceinline__ void enqueue(State& w, int ref, int count,
-                                        float t_near) {
-  w.queue_first[w.qn] = ~ref;
-  w.queue_count[w.qn] = count;
-  w.queue_near[w.qn] = t_near;
-  ++w.qn;
-}
-
-// One step at internal record w.cur: test both children, queue the wanted
-// leaves near first, descend into the nearer wanted internal child and
-// push the other, or pop the next stacked node that t still admits.
-__device__ __forceinline__ void step(const Walk& s, const Ray& r, float t,
-                                     State& w) {
-  const float4* p = s.nodes + 4 * w.cur;
-  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-  const int4 m = __ldg(reinterpret_cast<const int4*>(p + 3));
-  float nl, fl, nr, fr;
-  evplp::slab(r, a.x, a.y, a.z, a.w, b.x, b.y, nl, fl);
-  evplp::slab(r, b.z, b.w, c.x, c.y, c.z, c.w, nr, fr);
-  const bool leaf_l = m.x < 0, leaf_r = m.y < 0;
-  const bool want_l =
-      leaf_l ? leaf_admits(nl, fl, t) : evplp::slab_admits(nl, fl, t);
-  const bool want_r =
-      leaf_r ? leaf_admits(nr, fr, t) : evplp::slab_admits(nr, fr, t);
-  const bool l_first = nl <= nr;
-  if (l_first) {
-    if (want_l && leaf_l) enqueue(w, m.x, m.z, nl);
-    if (want_r && leaf_r) enqueue(w, m.y, m.w, nr);
-  } else {
-    if (want_r && leaf_r) enqueue(w, m.y, m.w, nr);
-    if (want_l && leaf_l) enqueue(w, m.x, m.z, nl);
-  }
-  const bool go_l = want_l && !leaf_l, go_r = want_r && !leaf_r;
-  if (go_l && go_r) {
-    w.stack_ref[w.sp] = l_first ? m.y : m.x;
-    w.stack_near[w.sp] = l_first ? nr : nl;
-    ++w.sp;
-    w.cur = l_first ? m.x : m.y;
-  } else if (go_l || go_r) {
-    w.cur = go_l ? m.x : m.y;
-  } else {
-    w.cur = -1;
-    while (w.sp > 0) {
-      --w.sp;
-      if (w.stack_near[w.sp] <= t) {
-        w.cur = w.stack_ref[w.sp];
-        break;
-      }
-    }
-  }
-}
-
-// Walk one ray; t, prim, u, v hold the best hit so far.  Steps run while
-// the walk is alive and the leaf queue has room for a step's two leaves;
-// then the queue is drained in order, each leaf skipped if t no longer
-// admits it ("while-while": the warp's threads reconverge before they
-// drain, and run their triangle tests together).
-template <bool kAnyHit>
-__device__ void walk(const Walk& s, const Ray& r, float& t, int& prim,
-                     float& hu, float& hv) {
-  State w;
-  w.cur = 0;
-  w.sp = 0;
-  w.qn = 0;
-  while (w.cur >= 0 || w.qn > 0) {
-    while (w.cur >= 0 && w.qn + 2 <= kQueueCap) step(s, r, t, w);
-    for (int q = 0; q < w.qn; ++q) {
-      if (w.queue_near[q] <= t * kLeafWidenT &&
-          test_leaf<kAnyHit>(s, r, w.queue_first[q], w.queue_count[q], t,
-                             prim, hu, hv))
-        return;
-    }
-    w.qn = 0;
-  }
-}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
@@ -206,7 +82,7 @@ traverse_kernel(Walk s, Rays r) {
   float t = r.t_max[i];
   int prim = -1;
   float hu = 0.0f, hv = 0.0f;
-  if (t > ray.lo) walk<kAnyHit>(s, ray, t, prim, hu, hv);
+  if (t > ray.lo) evplp::walk<kAnyHit>(s, ray, 0, t, prim, hu, hv);
   r.t[i] = t;
   r.prim[i] = prim;
   r.u[i] = hu;

@@ -112,7 +112,9 @@ def load_cuda_library(name: str, source: str, signatures: dict) -> ctypes.CDLL:
 
 def _unmangled(name: str) -> str:
     """The innermost identifier of an Itanium-mangled name
-    (`_ZN12_GLOBAL__N_16kernelEPKf` -> `kernel`); other names as they are."""
+    (`_ZN12_GLOBAL__N_16kernelEPKf` -> `kernel`), with the bool arguments
+    of a template (`...6kernelILb1EEEv...` -> `kernel<true>`); other names
+    as they are."""
     i = 3 if name.startswith("_ZN") else 2 if name.startswith("_Z") else 0
     last = name
     while i and i < len(name) and name[i].isdigit():
@@ -120,6 +122,11 @@ def _unmangled(name: str) -> str:
         while name[j].isdigit():
             j += 1
         last, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+    args = re.match(r"I((?:Lb[01]E)+)E", name[i:]) if i else None
+    if args:
+        flags = re.findall(r"Lb([01])E", args.group(1))
+        last += "<" + ", ".join("true" if f == "1" else "false"
+                                for f in flags) + ">"
     return last
 
 

@@ -28,10 +28,13 @@ BRUTE_BLOCK_ELEMS = 1 << 22
 # constant, not a flag):
 #   "packet3": trace/traverse.py, kernel csrc/traverse.cu (the default);
 #   "packet7": trace/packet7.py, kernel csrc/packet7.cu, the two-level loop
-#              over the packed node layout;
-#   "packet":  trace/packet.py, kernel csrc/packet.cu, one shared stack per
-#              packet; the JAX package no longer dispatches its v1 kernel,
-#              so this value is the port's only path to that kernel.
+#              with a warp-wide leaf drain;
+#   "packet":  trace/packet.py, kernel csrc/packet.cu, warp packets with
+#              single-ray walks where a packet falls apart; the JAX package
+#              no longer dispatches its v1 kernel, so this value is the
+#              port's only path to that kernel.
+# All three read the BVH's walk records and equal traverse_plain ray for
+# ray, so the value changes no result.
 # On a scene the JAX package builds with fused node rows (bvh.fused_nodes,
 # above 280,000 triangles) every value gives way to "packet3", as the JAX
 # dispatch does: its other kernels do not read that layout.

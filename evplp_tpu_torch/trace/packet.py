@@ -1,35 +1,43 @@
-"""BVH ray traversal with one shared stack per packet: the Hopper kernel's
-wrapper and its plain version.
+"""BVH ray traversal by warp packets: the Hopper kernel's wrapper and its
+plain version.
 
 `packet_trace` computes what `trace/traverse.py:traverse` computes, the
 closest hit (t, prim, u, v) in (t_min, t_max) or, with any_hit, whether any
-triangle lies in that interval, from the skip-pointer node arrays and the
-slot-ordered triangles.  It is the counterpart of the JAX package's Pallas
-kernel `trace/packet.py:_packet_kernel` (entry `packet_trace`), the v1
-packet traversal that the JAX package no longer dispatches: a packet of
-rays shares one node stack, each popped node is slab-tested against all of
-them, and the packet descends if any ray wants the node.  Here a packet is
-PACKET rays, one warp on the card.  Lanes with t_max <= t_min are not traced
-and report no hit (t_max, -1).
+triangle lies in that interval, and equals `traverse_plain` ray for ray.
+It is the counterpart of the JAX package's Pallas kernel
+`trace/packet.py:_packet_kernel` (entry `packet_trace`), the v1 packet
+traversal that the JAX package no longer dispatches: a packet of rays
+shares one node stack, and the packet descends where any of its rays wants
+a node.  Here a packet is PACKET consecutive rays, one warp on the card,
+walking the BVH's walk records (`accel/bvh.py:walk_layout`): each step
+tests one record's two children against every ray of the step's mask,
+each ray culls leaves by its own conservative test and keeps the least
+(t, slot), the packet descends into the child more of its rays reach first
+and stacks the other with the mask of the rays that want it, and when
+fewer than SOLO rays want a node, each walks that subtree alone with the
+ordered walk of `traverse.walk_plain` (`WalkState`).  Lanes with
+t_max <= t_min are not traced and report no hit (t_max, -1).
 
 On a CUDA tensor the wrapper launches `csrc/packet.cu` (built with nvcc at
 first use, bound with ctypes) and never anything else; on a CPU tensor it
-runs `packet_plain`, the same walk in plain PyTorch, which also serves as
-the kernel's reference on the card.  `launches` counts kernel launches.
+runs `packet_plain`, the same steps in plain PyTorch, which the tests and
+chip_smoke.py also use to count the kernel's work.  `launches` counts
+kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
-from evplp_tpu_torch.native.build import load_cuda_library
-from evplp_tpu_torch.trace.traverse import (BIG, check_rays_alloc_hits,
-                                            check_skip_pointer_scene, ray_tri)
+from evplp_tpu_torch.trace.traverse import (
+    LEAF_WIDEN_T, STACK_DEPTH, WARP, WalkState, add_work, check_stack_depth,
+    check_walk_scene, launch_walk_kernel, load_walk_library, test_children)
 
-PACKET = 32             # rays per packet: one warp
-STACK_DEPTH = 96        # shared node stack per packet (csrc/packet.cu)
+PACKET = WARP           # rays per packet: one warp
+# a node that fewer than SOLO of the packet's rays want is walked by each of
+# them alone (csrc/packet.cu kSolo): the packet steps only where all want it
+SOLO = 32
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "packet.cu")
@@ -37,143 +45,165 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 launches = 0
 
 
-def load_library() -> ctypes.CDLL:
+def load_library():
     """Build (at first use) and load the kernel library."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    # nodes: min, max, skip, first, count; tris: v0, e1, e2;
-    # rays: o, d, t_min, t_max, R; out: t, prim, u, v; stream
-    args = [vp] * 12 + [ci] + [vp] * 5
-    return load_cuda_library("packet", _SRC, {
-        "evplp_packet_closest": args, "evplp_packet_any": args})
-
-
-def _check_depth(bvh):
-    # a packet's stack holds at most one entry per level plus two
-    if bvh.depth + 2 > STACK_DEPTH:
-        raise ValueError(f"BVH depth {bvh.depth} exceeds the packet stack "
-                         f"of {STACK_DEPTH}")
+    return load_walk_library("packet", _SRC, "evplp_packet")
 
 
 def packet_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
     """Launch the CUDA kernel on PyTorch's current stream.  Returns
     (t, prim, u, v); with any_hit, prim >= 0 marks an occluded ray and
-    t, u, v are those of its first hit."""
+    t, u, v are those of its first hit.  The kernel reads the BVH's walk
+    records, not `tris`."""
     global launches
-    t, prim, u, v = check_rays_alloc_hits(o, d, t_min, t_max,
-                                          "the packet kernel")
-    dev, r = o.device, o.shape[0]
-    check_skip_pointer_scene(tris, bvh, dev)
-    _check_depth(bvh)
-    if r == 0:
-        return t, prim, u, v
-    lib = load_library()
-    fn = lib.evplp_packet_any if any_hit else lib.evplp_packet_closest
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(bvh.node_min.data_ptr(), bvh.node_max.data_ptr(),
-                 bvh.node_skip.data_ptr(), bvh.node_first.data_ptr(),
-                 bvh.node_count.data_ptr(), tris.v0.data_ptr(),
-                 tris.e1.data_ptr(), tris.e2.data_ptr(), o.data_ptr(),
-                 d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), r,
-                 t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"packet kernel launch failed: CUDA error {err}")
-    launches += 1
-    return t, prim, u, v
+    out = launch_walk_kernel(load_library, "evplp_packet",
+                             "the packet kernel", tris, bvh, o, d, t_min,
+                             t_max, any_hit)
+    if o.shape[0]:
+        launches += 1
+    return out
+
+
+def _left_first(want_l, want_r, near_l, near_r):
+    """Per packet, whether it takes the left child first (csrc/packet.cu
+    left_first): lanes that want one child vote for it, lanes that want
+    both for the nearer; left wins a tie of votes."""
+    votes_l = (want_l & (~want_r | (near_l <= near_r))).sum(dim=1)
+    votes_r = (want_r & (~want_l | (near_r < near_l))).sum(dim=1)
+    return votes_l >= votes_r
 
 
 def packet_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
                  work: dict | None = None):
-    """The kernel's walk in plain PyTorch, batched over packets of PACKET
-    consecutive rays (the last one padded with lanes that are not traced).
+    """The kernel's packet walk in plain PyTorch, batched over packets of
+    PACKET consecutive rays (the last one padded with lanes that are not
+    traced).
 
-    Every packet with a non-empty stack pops its top node, slab-tests it
-    against its rays and, if any ray wants it, tests all the leaf's
-    triangles against all its rays (closest: least t in (t_min, t), the
-    first triangle on ties; any hit: the first hit of rays without one) or
-    pushes the right child, then the left.  An any-hit packet stops when
-    each of its rays has a hit or is not traced.
+    Each round moves every packet one kernel action: a pop of its stack
+    (the popped node keeps the lanes of its mask whose t still admits it),
+    then, where fewer than SOLO lanes want the node, a single-ray walk of
+    the subtree by each of them (one WalkState pass a round, the packet
+    waiting until all have ended), else a packet step: both children tested
+    by every lane of the mask, the wanted leaves tested by the lanes whose
+    own leaf test passed (the leaf more lanes reach first first), and the
+    packet descends into the child more lanes reach first, stacking the
+    other with its mask.
 
-    work: optional dict; "slabs" and "tris" are incremented by the box tests
-    and ray-triangle tests the kernel makes (every lane of a packet tests
-    every node it pops and every triangle of a wanted leaf)."""
+    work: optional dict, incremented by "steps" (record steps of lanes: a
+    lane of a packet step's mask, or one single-ray step), "tris"
+    (ray-triangle tests of lanes), "packet_steps" (steps of packets),
+    "lane_packet_steps" (the lanes in their masks), "solo_walks" (subtrees
+    walked alone), "solo_passes" (their WalkState passes) and
+    "solo_rounds" (rounds packets spent waiting on them)."""
     r, dev = o.shape[0], o.device
-    _check_depth(bvh)
-    num = -(-r // PACKET)
-    pad = num * PACKET - r
+    check_stack_depth(bvh)
+    check_walk_scene(tris, bvh, dev)
+    ws, num = WalkState.in_warps(bvh, o, d, t_min, t_max, wide=True)
+    lane_ids = torch.arange(PACKET, device=dev)
+    rows_of = torch.arange(num, device=dev)[:, None] * PACKET + lane_ids
+    i64 = torch.int64
+    cur = torch.zeros((num,), dtype=i64, device=dev)
+    mask = (ws.t > ws.lo).reshape(num, PACKET)
+    sp = torch.zeros((num,), dtype=i64, device=dev)
+    sref = torch.zeros((num, STACK_DEPTH), dtype=i64, device=dev)
+    smask = torch.zeros((num, STACK_DEPTH, PACKET), dtype=torch.bool,
+                        device=dev)
+    snear = torch.zeros((num, STACK_DEPTH, PACKET), dtype=torch.float32,
+                        device=dev)
+    waiting = torch.zeros((num,), dtype=torch.bool, device=dev)
+    ended = ~mask.any(dim=1)
+    solo = torch.zeros((num * PACKET,), dtype=torch.bool, device=dev)
 
-    def lanes(x, fill):
-        x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-        return x.reshape((num, PACKET) + x.shape[1:])
+    def alive(rows):
+        return ws.prim[rows] < 0 if any_hit else torch.ones_like(
+            rows, dtype=torch.bool)
 
-    oa, da = lanes(o, 0.0), lanes(d, 1.0)
-    lo, t = lanes(t_min, 1.0), lanes(t_max, 0.0)
-    live = t > lo
-    inv = torch.where(torch.abs(da) > 1e-20, 1.0 / da,
-                      torch.where(da >= 0, BIG, -BIG))
-    prim = torch.full((num, PACKET), -1, dtype=torch.int32, device=dev)
-    u = torch.zeros_like(t)
-    v = torch.zeros_like(t)
-    stack = torch.zeros((num, STACK_DEPTH), dtype=torch.int64, device=dev)
-    sp = live.any(dim=1).long()
-    leaf_k = torch.arange(int(bvh.node_count.max()), device=dev)
-    last_tri = tris.v0.shape[0] - 1
+    while True:
+        # pops: each packet without a node takes stacked nodes until one
+        # keeps a lane
+        pk = torch.nonzero(~waiting & ~ended & (cur < 0)).squeeze(1)
+        while pk.numel():
+            empty = sp[pk] == 0
+            ended[pk[empty]] = True
+            pk = pk[~empty]
+            sp[pk] -= 1
+            s, rows = sp[pk], rows_of[pk]
+            m = (smask[pk, s] & (snear[pk, s] <= ws.t[rows] * LEAF_WIDEN_T)
+                 & alive(rows))
+            mask[pk], cur[pk] = m, sref[pk, s]
+            pk = pk[~m.any(dim=1)]
+        act = ~waiting & ~ended
+        # fewer than SOLO lanes: each walks the subtree alone
+        few = torch.nonzero(act & (mask.sum(dim=1) < SOLO)).squeeze(1)
+        if few.numel():
+            rows = rows_of[few][mask[few]]
+            ws.cur[rows] = cur[few][:, None].expand(-1, PACKET)[mask[few]]
+            ws.sp[rows] = 0
+            ws.qn[rows] = 0
+            solo[rows] = True
+            waiting[few] = True
+            cur[few] = -1
+            add_work(work, "solo_walks", rows.numel())
+        pk = torch.nonzero(act & (mask.sum(dim=1) >= SOLO)).squeeze(1)
+        if pk.numel():
+            _packet_step(ws, pk, rows_of[pk], cur, mask, sp, sref, smask,
+                         snear, any_hit, work)
+        rows = torch.nonzero(solo).squeeze(1)
+        if rows.numel():
+            add_work(work, "solo_rounds", int(waiting.sum()))
+            add_work(work, "solo_passes", rows.numel())
+            done = ws.walk_pass(rows, any_hit, work)
+            solo[done] = False
+            ws.cur[done] = -1
+            ws.qn[done] = 0
+            waiting &= solo.reshape(num, PACKET).any(dim=1)
+        elif not bool(act.any()):
+            break
+    t, prim, u, v = ws.hits()
+    return t[:r], prim[:r], u[:r], v[:r]
 
-    act = torch.nonzero(sp > 0).squeeze(1)
-    while act.numel():
-        s = sp[act] - 1
-        node = stack[act, s]
-        oo, ii = oa[act], inv[act]
-        t0 = (bvh.node_min[node][:, None] - oo) * ii
-        t1 = (bvh.node_max[node][:, None] - oo) * ii
-        t_near = torch.amax(torch.minimum(t0, t1), dim=2)
-        t_far = torch.amin(torch.maximum(t0, t1), dim=2)
-        want = (live[act] & (t_near <= t_far) & (t_far >= 0.0)
-                & (t_near <= t[act]))
-        if any_hit:
-            want &= prim[act] < 0
-        wanted = want.any(dim=1)
-        count = bvh.node_count[node]
-        if work is not None:
-            work["slabs"] = work.get("slabs", 0) + PACKET * act.numel()
-        leaf = wanted & (count > 0)
-        if bool(leaf.any()):
-            pk, nl = act[leaf], node[leaf]
-            tri = torch.clamp_max(bvh.node_first[nl][:, None] + leaf_k,
-                                  last_tri)                   # (L, K)
-            tt, uu, vv, ok = ray_tri(
-                oa[pk][:, :, None], da[pk][:, :, None],
-                tris.v0[tri][:, None], tris.e1[tri][:, None],
-                tris.e2[tri][:, None])                        # (L, P, K)
-            ok = (ok & (leaf_k < count[leaf][:, None])[:, None]
-                  & (tt > lo[pk][:, :, None]) & (tt < t[pk][:, :, None]))
+
+def _packet_step(ws, pk, rows, cur, mask, sp, sref, smask, snear, any_hit,
+                 work):
+    """One packet step of packets pk (lanes `rows`, (P, PACKET)) at their
+    records cur[pk] (csrc/packet.cu)."""
+    m = mask[pk]
+    (near_l, near_r, ref_l, ref_r, cnt_l, cnt_r, want_l,
+     want_r) = test_children(ws.nodes, ws.words, cur[pk][:, None],
+                             ws.oa[rows], ws.inv[rows], ws.t[rows], True)
+    want_l, want_r = want_l & m, want_r & m
+    leaf_l, leaf_r = ref_l < 0, ref_r < 0           # (P, 1)
+    lw_l, lw_r = want_l & leaf_l, want_r & leaf_r
+    lf = _left_first(lw_l, lw_r, near_l, near_r)[:, None]
+    for first in (True, False):
+        pick_l = lf if first else ~lf
+        want = torch.where(pick_l, lw_l, lw_r)
+        if not first:   # the second leaf, if t still admits it
+            want &= torch.where(pick_l, near_l, near_r) <= (
+                ws.t[rows] * LEAF_WIDEN_T)
             if any_hit:
-                ok &= (prim[pk] < 0)[:, :, None]
-                j = torch.argmax(ok.to(torch.int8), dim=2, keepdim=True)
-            else:
-                j = torch.argmin(torch.where(ok, tt, float("inf")), dim=2,
-                                 keepdim=True)
-            hit = ok.gather(2, j)[..., 0]
-            t[pk] = torch.where(hit, tt.gather(2, j)[..., 0], t[pk])
-            prim[pk] = torch.where(
-                hit, tri[:, None, :].expand_as(tt).gather(2, j)[..., 0].int(),
-                prim[pk])
-            u[pk] = torch.where(hit, uu.gather(2, j)[..., 0], u[pk])
-            v[pk] = torch.where(hit, vv.gather(2, j)[..., 0], v[pk])
-            if work is not None:
-                work["tris"] = work.get("tris", 0) + PACKET * int(
-                    count[leaf].sum())
-        push = wanted & (count == 0)
-        pp, nn, sp_p = act[push], node[push], s[push]
-        stack[pp, sp_p] = bvh.node_skip[nn + 1].long()
-        stack[pp, sp_p + 1] = nn + 1
-        sp[act] = s + 2 * push.long()
-        if any_hit:
-            done = ((prim[act] >= 0) | ~live[act]).all(dim=1)
-            sp[act[done]] = 0
-        act = act[sp[act] > 0]
-    return tuple(x.reshape(-1)[:r] for x in (t, prim, u, v))
+                want &= ws.prim[rows] < 0
+        ref = torch.where(pick_l, ref_l, ref_r).expand_as(want)
+        cnt = torch.where(pick_l, cnt_l, cnt_r).expand_as(want)
+        ws.test_leaf(rows[want], ~ref[want], cnt[want], any_hit, work)
+    alive = ws.prim[rows] < 0 if any_hit else True
+    go_l, go_r = want_l & ~leaf_l & alive, want_r & ~leaf_r & alive
+    has_l, has_r = go_l.any(dim=1), go_r.any(dim=1)
+    lf = _left_first(go_l, go_r, near_l, near_r)
+    both = has_l & has_r
+    pb, s = pk[both], sp[pk[both]]
+    lfb = lf[both][:, None]
+    sref[pb, s] = torch.where(lfb, ref_r[both], ref_l[both])[:, 0]
+    smask[pb, s] = torch.where(lfb, go_r[both], go_l[both])
+    snear[pb, s] = torch.where(lfb, near_r[both], near_l[both])
+    sp[pb] = s + 1
+    take_l = torch.where(both, lf, has_l)
+    cur[pk] = torch.where(both | has_l | has_r,
+                          torch.where(take_l, ref_l[:, 0], ref_r[:, 0]), -1)
+    mask[pk] = torch.where(take_l[:, None], go_l, go_r)
+    add_work(work, "packet_steps", pk.numel())
+    add_work(work, "lane_packet_steps", m.sum())
+    add_work(work, "steps", m.sum())
 
 
 def packet_trace(tris, bvh, o, d, t_min, t_max, any_hit: bool):

@@ -16,7 +16,10 @@ another path to the same hits: an ordered walk over the BVH's walk records
 (`accel/bvh.py:walk_layout`) that culls leaves by a conservative box test
 and breaks ties in t by the least slot.  `walk_plain` takes the kernel's
 steps in plain PyTorch; the tests and chip_smoke.py use it to check that
-walk on the CPU and to count its operations.  `launches` counts kernel
+walk on the CPU and to count its operations.  Its state, `WalkState`, is
+also the single-ray walk of packet.py's and packet7.py's plain versions,
+whose kernels share the walk (csrc/ray_common.cuh) and the C interface
+(`load_walk_library`, `launch_walk_kernel`).  `launches` counts kernel
 launches.
 """
 from __future__ import annotations
@@ -31,9 +34,12 @@ from evplp_tpu_torch.native.build import check_tensor, load_cuda_library
 
 TRI_EPS = 1e-9          # determinant cutoff
 BIG = 3.4e38
-STACK_DEPTH = 64        # per-ray node stack (csrc/traverse.cu kStackDepth)
-QUEUE_CAP = 8           # per-ray leaf queue (csrc/traverse.cu kQueueCap)
-# The kernel's conservative leaf-box test (csrc/traverse.cu kLeafWiden,
+WARP = 32               # lanes of a warp
+# the walk's node stack (a ray's, or a packet's) and a ray's leaf queue
+# (csrc/ray_common.cuh kStackDepth, kQueueCap)
+STACK_DEPTH = 64
+QUEUE_CAP = 8
+# The kernels' conservative leaf-box test (csrc/ray_common.cuh kLeafWiden,
 # kLeafWidenT): t_near <= t_far * LEAF_WIDEN and t_near <= t * LEAF_WIDEN_T,
 # the float32 roundings of 1 + 2 gamma_3 and (1 + 2 gamma_3)^2,
 # gamma_3 = 3u / (1 - 3u), u = 2^-24
@@ -46,13 +52,19 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 launches = 0
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
+def load_walk_library(name: str, source: str, entry: str) -> ctypes.CDLL:
+    """Build (at first use) and load a traversal kernel library whose C
+    entry `entry` takes the walk records, the rays and the outputs."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # walk nodes, walk tris; rays: o, d, t_min, t_max, R; out: t, prim, u,
     # v; any_hit; stream
     args = [vp] * 6 + [ci] + [vp] * 4 + [ci, vp]
-    return load_cuda_library("traverse", _SRC, {"evplp_traverse": args})
+    return load_cuda_library(name, source, {entry: args})
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    return load_walk_library("traverse", _SRC, "evplp_traverse")
 
 
 def check_rays_alloc_hits(o, d, t_min, t_max, what: str):
@@ -72,22 +84,6 @@ def check_rays_alloc_hits(o, d, t_min, t_max, what: str):
             torch.empty((r,), dtype=f32, device=dev))
 
 
-def check_skip_pointer_scene(tris, bvh, dev):
-    """Raise unless the skip-pointer node arrays and the triangle SoA lie on
-    dev with the kernels' dtypes and shapes."""
-    n, nt = bvh.node_min.shape[0], tris.v0.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    for x, name, dt, shape in (
-            (bvh.node_min, "node_min", f32, (n, 3)),
-            (bvh.node_max, "node_max", f32, (n, 3)),
-            (bvh.node_skip, "node_skip", i32, (n,)),
-            (bvh.node_first, "node_first", i32, (n,)),
-            (bvh.node_count, "node_count", i32, (n,)),
-            (tris.v0, "v0", f32, (nt, 3)), (tris.e1, "e1", f32, (nt, 3)),
-            (tris.e2, "e2", f32, (nt, 3))):
-        check_tensor(x, name, dt, shape, dev)
-
-
 def check_stack_depth(bvh):
     """Raise unless the tree is shallow enough for the kernel's stack."""
     if bvh.depth >= STACK_DEPTH:
@@ -104,31 +100,44 @@ def check_walk_scene(tris, bvh, dev):
                  (tris.v0.shape[0], WALK_TRI_FLOATS), dev)
 
 
+def launch_walk_kernel(load, entry: str, what: str, tris, bvh, o, d, t_min,
+                       t_max, any_hit: bool, check_scene=None):
+    """Check the inputs of a kernel over the BVH's walk records (and, with
+    check_scene, check_scene(bvh, device) after the rays), launch `entry`
+    of the library `load()` returns on PyTorch's current stream, and return
+    (t, prim, u, v); raise if the launch fails."""
+    check_stack_depth(bvh)
+    t, prim, u, v = check_rays_alloc_hits(o, d, t_min, t_max, what)
+    dev, r = o.device, o.shape[0]
+    check_walk_scene(tris, bvh, dev)
+    if check_scene is not None:
+        check_scene(bvh, dev)
+    if r == 0:
+        return t, prim, u, v
+    fn = getattr(load(), entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(bvh.walk_nodes.data_ptr(), bvh.walk_tris.data_ptr(),
+                 o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+                 t_max.data_ptr(), r, t.data_ptr(), prim.data_ptr(),
+                 u.data_ptr(), v.data_ptr(), int(any_hit), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return t, prim, u, v
+
+
 def traverse_cuda(tris, bvh, o, d, t_min, t_max, any_hit: bool):
     """Launch the CUDA kernel on PyTorch's current stream.  Returns
     (t, prim, u, v); with any_hit, prim >= 0 marks an occluded ray and
     t, u, v are those of the first hit found.  The kernel reads the BVH's
     walk records, not `tris`."""
     global launches
-    check_stack_depth(bvh)
-    t, prim, u, v = check_rays_alloc_hits(o, d, t_min, t_max,
-                                          "the traversal kernel")
-    dev, r = o.device, o.shape[0]
-    check_walk_scene(tris, bvh, dev)
-    if r == 0:
-        return t, prim, u, v
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.evplp_traverse(
-            bvh.walk_nodes.data_ptr(), bvh.walk_tris.data_ptr(),
-            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            r, t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-            int(any_hit), stream)
-    if err != 0:
-        raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
-    launches += 1
-    return t, prim, u, v
+    out = launch_walk_kernel(load_library, "evplp_traverse",
+                             "the traversal kernel", tris, bvh, o, d, t_min,
+                             t_max, any_hit)
+    if o.shape[0]:
+        launches += 1
+    return out
 
 
 def ray_tri(o, d, v0, e1, e2):
@@ -181,8 +190,7 @@ def traverse_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
 
     ids = torch.nonzero(t_max > t_min).squeeze(1)
     oa, da, lo = o[ids], d[ids], t_min[ids]
-    inv = torch.where(torch.abs(da) > 1e-20, 1.0 / da,
-                      torch.where(da >= 0, BIG, -BIG))
+    inv = inv_dir(da)
     t = t_max[ids]
     prim = torch.full_like(ids, -1, dtype=torch.int32)
     u = torch.zeros_like(t)
@@ -236,15 +244,229 @@ def _slab(lo, hi, oa, inv):
     """(t_near, t_far) of each ray's slab interval through its box."""
     t0 = (lo - oa) * inv
     t1 = (hi - oa) * inv
-    return (torch.amax(torch.minimum(t0, t1), dim=1),
-            torch.amin(torch.maximum(t0, t1), dim=1))
+    return (torch.amax(torch.minimum(t0, t1), dim=-1),
+            torch.amin(torch.maximum(t0, t1), dim=-1))
+
+
+def inv_dir(d):
+    """1/d, or +-BIG where |d| <= 1e-20 (csrc/ray_common.cuh inv_dir)."""
+    return torch.where(torch.abs(d) > 1e-20, 1.0 / d,
+                       torch.where(d >= 0, BIG, -BIG))
+
+
+def test_children(nodes, words, rec, oa, inv, t, wide: bool = False):
+    """Both children of walk records rec for rays (oa, inv) at t, as
+    csrc/ray_common.cuh test_children: (near_l, near_r, ref_l, ref_r,
+    cnt_l, cnt_r, want_l, want_r); a leaf child is wanted by the
+    conservative leaf-box test, an internal one by the exact slab test, or
+    with wide at t * LEAF_WIDEN_T.  rec broadcasts against the rays'
+    leading dimensions."""
+    b, w = nodes[rec], words[rec]
+    near_l, far_l = _slab(b[..., 0:3], b[..., 3:6], oa, inv)
+    near_r, far_r = _slab(b[..., 6:9], b[..., 9:12], oa, inv)
+    ref_l, ref_r, cnt_l, cnt_r = w[..., 12], w[..., 13], w[..., 14], w[..., 15]
+    want = []
+    t_in = t * LEAF_WIDEN_T if wide else t
+    for near, far, ref in ((near_l, far_l, ref_l), (near_r, far_r, ref_r)):
+        want.append(torch.where(
+            ref < 0, (near <= far * LEAF_WIDEN) & (far >= 0.0)
+            & (near <= t * LEAF_WIDEN_T),
+            (near <= far) & (far >= 0.0) & (near <= t_in)))
+    return near_l, near_r, ref_l, ref_r, cnt_l, cnt_r, want[0], want[1]
+
+
+def add_work(work, key, n):
+    """Add n to work[key] (work: a dict of counts, or None)."""
+    if work is not None:
+        work[key] = work.get(key, 0) + int(n)
+
+
+class WalkState:
+    """The ordered walk of csrc/ray_common.cuh (`step`, `walk`) for a batch
+    of rays, in plain PyTorch: each ray's best hit (t, slot, u, v), its
+    current record (-1: none), node stack and leaf queue.  walk_plain,
+    packet_plain and packet7_plain move rays through it; `rows` index the
+    batch.  With wide, internal boxes are tested at t * LEAF_WIDEN_T, as
+    packet.cu's walks test them."""
+
+    PER_RAY = ("oa", "da", "inv", "lo", "t", "prim", "u", "v", "cur", "sp",
+               "qn", "stack_ref", "stack_near", "q_first", "q_count",
+               "q_near")
+
+    def __init__(self, bvh, o, d, t_min, t, wide: bool = False):
+        dev, n = o.device, o.shape[0]
+        self.wide = wide
+        self.nodes = bvh.walk_nodes
+        self.words = self.nodes.view(torch.int32).long()
+        rec = bvh.walk_tris
+        self.tv0, self.te1, self.te2 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
+        self.last = rec.shape[0] - 1
+        self.kk = torch.arange(max(int(self.words[:, 14:16].max()), 1),
+                               device=dev)
+        i64, f32 = torch.int64, torch.float32
+        self.oa, self.da, self.lo, self.t = o, d, t_min, t.clone()
+        self.inv = inv_dir(d)
+        self.prim = torch.full((n,), -1, dtype=i64, device=dev)
+        self.u = torch.zeros((n,), dtype=f32, device=dev)
+        self.v = torch.zeros((n,), dtype=f32, device=dev)
+        self.cur = torch.full((n,), -1, dtype=i64, device=dev)
+        self.sp = torch.zeros((n,), dtype=i64, device=dev)
+        self.qn = torch.zeros((n,), dtype=i64, device=dev)
+        self.stack_ref = torch.zeros((n, STACK_DEPTH), dtype=i64, device=dev)
+        self.stack_near = torch.zeros((n, STACK_DEPTH), dtype=f32,
+                                      device=dev)
+        self.q_first = torch.zeros((n, QUEUE_CAP), dtype=i64, device=dev)
+        self.q_count = torch.zeros_like(self.q_first)
+        self.q_near = torch.zeros((n, QUEUE_CAP), dtype=f32, device=dev)
+
+    @classmethod
+    def in_warps(cls, bvh, o, d, t_min, t_max, wide: bool = False):
+        """The state of R rays padded to whole warps of WARP with lanes
+        that are not traced (t_max <= t_min), and the number of warps."""
+        num = -(-o.shape[0] // WARP)
+        pad = num * WARP - o.shape[0]
+
+        def lanes(x, fill):
+            return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+        return cls(bvh, lanes(o, 0.0), lanes(d, 1.0), lanes(t_min, 1.0),
+                   lanes(t_max, 0.0), wide), num
+
+    def keep(self, keep):
+        """Keep only the rays where `keep` (a bool mask) holds."""
+        for k in self.PER_RAY:
+            setattr(self, k, getattr(self, k)[keep])
+
+    def stepping(self):
+        """Rays whose walk is alive and whose queue has room for a step's
+        two leaves."""
+        return (self.cur >= 0) & (self.qn + 2 <= QUEUE_CAP)
+
+    def step(self, ii, work=None):
+        """One step of rays ii at their current records: test both
+        children, queue the wanted leaves near first, descend into the
+        nearer wanted internal child and push the other, or pop the next
+        stacked node that t still admits."""
+        if not ii.numel():
+            return
+        (near_l, near_r, ref_l, ref_r, cnt_l, cnt_r, want_l,
+         want_r) = test_children(self.nodes, self.words, self.cur[ii],
+                                 self.oa[ii], self.inv[ii], self.t[ii],
+                                 self.wide)
+        leaf_l, leaf_r = ref_l < 0, ref_r < 0
+        l_first = near_l <= near_r
+        q = self.qn[ii]
+        for first in (True, False):
+            pick_l = l_first if first else ~l_first
+            add = torch.where(pick_l, want_l & leaf_l, want_r & leaf_r)
+            rows, pos = ii[add], q[add]
+            self.q_first[rows, pos] = ~torch.where(pick_l, ref_l, ref_r)[add]
+            self.q_count[rows, pos] = torch.where(pick_l, cnt_l, cnt_r)[add]
+            self.q_near[rows, pos] = torch.where(pick_l, near_l, near_r)[add]
+            q = q + add
+        self.qn[ii] = q
+        go_l, go_r = want_l & ~leaf_l, want_r & ~leaf_r
+        both = go_l & go_r
+        rows, s = ii[both], self.sp[ii[both]]
+        self.stack_ref[rows, s] = torch.where(l_first, ref_r, ref_l)[both]
+        self.stack_near[rows, s] = torch.where(l_first, near_r, near_l)[both]
+        self.sp[rows] = s + 1
+        nxt = torch.where(both, torch.where(l_first, ref_l, ref_r),
+                          torch.where(go_l, ref_l,
+                                      torch.where(go_r, ref_r, -1)))
+        self.cur[ii] = nxt
+        pp = ii[nxt < 0]
+        while pp.numel():
+            pp = pp[self.sp[pp] > 0]
+            self.sp[pp] -= 1
+            t = self.t[pp] * LEAF_WIDEN_T if self.wide else self.t[pp]
+            ok = self.stack_near[pp, self.sp[pp]] <= t
+            self.cur[pp[ok]] = self.stack_ref[pp[ok], self.sp[pp[ok]]]
+            pp = pp[~ok]
+        add_work(work, "steps", ii.numel())
+
+    def leaf_hits(self, rows, first, count, bound, any_hit):
+        """Each row's hit among the `count` triangles from slot `first`
+        with t in (t_min, bound] (ray_common.cuh ray_tri): (tt, slot, u, v,
+        ok, tested).  Closest: the least (t, slot).  Any hit: the first hit
+        in slot order with t < bound, where test_tris stops."""
+        slot = torch.clamp_max(first[:, None] + self.kk, self.last)
+        tt, uu, vv, ok = ray_tri(self.oa[rows, None], self.da[rows, None],
+                                 self.tv0[slot], self.te1[slot],
+                                 self.te2[slot])
+        ok = (ok & (self.kk < count[:, None]) & (tt > self.lo[rows, None])
+              & (tt <= bound[:, None]))
+        if any_hit:
+            ok &= tt < bound[:, None]
+            j = torch.argmax(ok.to(torch.int8), dim=1, keepdim=True)
+            hit = ok.any(dim=1)
+            tested = torch.where(hit, j[:, 0] + 1, count)
+        else:
+            j = torch.argmin(torch.where(ok, tt, float("inf")), dim=1,
+                             keepdim=True)
+            hit = ok.gather(1, j)[:, 0]
+            tested = count
+        return (tt.gather(1, j)[:, 0], slot.gather(1, j)[:, 0],
+                uu.gather(1, j)[:, 0], vv.gather(1, j)[:, 0], hit, tested)
+
+    def offer(self, rows, tt, slot, uu, vv, ok):
+        """Take each row's hit (tt <= t) where it beats the best: the least
+        (t, slot) (ray_common.cuh better_hit)."""
+        t, prim = self.t[rows], self.prim[rows]
+        better = ok & ((tt < t) | (slot < prim))
+        self.t[rows] = torch.where(better, tt, t)
+        self.prim[rows] = torch.where(better, slot, prim)
+        self.u[rows] = torch.where(better, uu, self.u[rows])
+        self.v[rows] = torch.where(better, vv, self.v[rows])
+
+    def test_leaf(self, rows, first, count, any_hit, work=None):
+        """Rows test the leaf (first, count) against their t, as
+        ray_common.cuh test_leaf; returns each row's triangle tests."""
+        if not rows.numel():
+            return count
+        *hit, tested = self.leaf_hits(rows, first, count, self.t[rows],
+                                      any_hit)
+        add_work(work, "tris", tested.sum())
+        self.offer(rows, *hit)
+        return tested
+
+    def drain(self, rows, any_hit, work=None):
+        """Drain the queues of rows in order, each leaf skipped if t no
+        longer admits it (ray_common.cuh walk); returns each row's
+        triangle tests."""
+        tests = torch.zeros_like(rows)
+        for qi in range(QUEUE_CAP):
+            take = (self.qn[rows] > qi) & (
+                self.q_near[rows, qi] <= self.t[rows] * LEAF_WIDEN_T)
+            if any_hit:
+                take &= self.prim[rows] < 0
+            r = rows[take]
+            tests[take] += self.test_leaf(r, self.q_first[r, qi],
+                                          self.q_count[r, qi], any_hit, work)
+        self.qn[rows] = 0
+        return tests
+
+    def walk_pass(self, rows, any_hit, work=None):
+        """One pass of the walk for rows: a step where the walk steps, else
+        a drain of the queue.  Returns the rows whose walk has ended (any
+        hit: at its first hit)."""
+        stepping = self.stepping()[rows]
+        self.step(rows[stepping], work)
+        self.drain(rows[~stepping & (self.qn[rows] > 0)], any_hit, work)
+        done = (self.cur[rows] < 0) & (self.qn[rows] == 0)
+        if any_hit:
+            done |= self.prim[rows] >= 0
+        return rows[done]
+
+    def hits(self):
+        """(t, prim, u, v) with prim as int32."""
+        return self.t, self.prim.int(), self.u, self.v
 
 
 def walk_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
                work: dict | None = None):
     """The kernel's ordered walk in plain PyTorch, batched over rays; the
-    same function as traverse_plain but for box grazes (for the tests and
-    chip_smoke.py).
+    same function as traverse_plain (for the tests and chip_smoke.py).
 
     Each pass moves every unfinished ray one kernel step: while its walk is
     alive and its leaf queue has room for two leaves, a step at its current
@@ -259,129 +481,25 @@ def walk_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
     r, dev = o.shape[0], o.device
     check_stack_depth(bvh)
     check_walk_scene(tris, bvh, dev)
-    nodes = bvh.walk_nodes
-    words = nodes.view(torch.int32).long()
-    rec = bvh.walk_tris
-    tv0, te1, te2 = rec[:, 0:3], rec[:, 4:7], rec[:, 8:11]
-    last = rec.shape[0] - 1
-    kk = torch.arange(max(int(words[:, 14:16].max()), 1), device=dev)
     t_out = t_max.clone()
     prim_out = torch.full((r,), -1, dtype=torch.int32, device=dev)
     u_out = torch.zeros((r,), dtype=torch.float32, device=dev)
     v_out = torch.zeros((r,), dtype=torch.float32, device=dev)
-
     ids = torch.nonzero(t_max > t_min).squeeze(1)
-    n = ids.numel()
-    oa, da, lo, t = o[ids], d[ids], t_min[ids], t_max[ids]
-    inv = torch.where(torch.abs(da) > 1e-20, 1.0 / da,
-                      torch.where(da >= 0, BIG, -BIG))
-    prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    u = torch.zeros_like(t)
-    v = torch.zeros_like(t)
-    cur = torch.zeros((n,), dtype=torch.int64, device=dev)
-    sp = torch.zeros_like(cur)
-    qn = torch.zeros_like(cur)
-    stack_ref = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
-    stack_near = torch.zeros((n, STACK_DEPTH), dtype=torch.float32,
-                             device=dev)
-    q_first = torch.zeros((n, QUEUE_CAP), dtype=torch.int64, device=dev)
-    q_count = torch.zeros_like(q_first)
-    q_near = torch.zeros((n, QUEUE_CAP), dtype=torch.float32, device=dev)
-
+    ws = WalkState(bvh, o[ids], d[ids], t_min[ids], t_max[ids])
+    ws.cur.zero_()
     while ids.numel():
-        stepping = (cur >= 0) & (qn + 2 <= QUEUE_CAP)
-        ii = torch.nonzero(stepping).squeeze(1)
-        if ii.numel():
-            b, w, tt = nodes[cur[ii]], words[cur[ii]], t[ii]
-            near_l, far_l = _slab(b[:, 0:3], b[:, 3:6], oa[ii], inv[ii])
-            near_r, far_r = _slab(b[:, 6:9], b[:, 9:12], oa[ii], inv[ii])
-            ref_l, ref_r, cnt_l, cnt_r = w[:, 12], w[:, 13], w[:, 14], w[:, 15]
-            leaf_l, leaf_r = ref_l < 0, ref_r < 0
-            want = []
-            for near, far, leaf in ((near_l, far_l, leaf_l),
-                                    (near_r, far_r, leaf_r)):
-                wide = far * LEAF_WIDEN
-                want.append(torch.where(
-                    leaf, (near <= wide) & (far >= 0.0)
-                    & (near <= tt * LEAF_WIDEN_T),
-                    (near <= far) & (far >= 0.0) & (near <= tt)))
-            want_l, want_r = want
-            l_first = near_l <= near_r
-            q = qn[ii]
-            for first in (True, False):
-                pick_l = l_first if first else ~l_first
-                add = torch.where(pick_l, want_l & leaf_l, want_r & leaf_r)
-                rows, pos = ii[add], q[add]
-                q_first[rows, pos] = ~torch.where(pick_l, ref_l, ref_r)[add]
-                q_count[rows, pos] = torch.where(pick_l, cnt_l, cnt_r)[add]
-                q_near[rows, pos] = torch.where(pick_l, near_l, near_r)[add]
-                q = q + add
-            qn[ii] = q
-            go_l, go_r = want_l & ~leaf_l, want_r & ~leaf_r
-            both = go_l & go_r
-            rows, s = ii[both], sp[ii[both]]
-            stack_ref[rows, s] = torch.where(l_first, ref_r, ref_l)[both]
-            stack_near[rows, s] = torch.where(l_first, near_r, near_l)[both]
-            sp[rows] = s + 1
-            nxt = torch.where(both, torch.where(l_first, ref_l, ref_r),
-                              torch.where(go_l, ref_l,
-                                          torch.where(go_r, ref_r, -1)))
-            cur[ii] = nxt
-            pp = ii[nxt < 0]
-            while pp.numel():
-                pp = pp[sp[pp] > 0]
-                sp[pp] -= 1
-                ok = stack_near[pp, sp[pp]] <= t[pp]
-                cur[pp[ok]] = stack_ref[pp[ok], sp[pp[ok]]]
-                pp = pp[~ok]
-            if work is not None:
-                work["steps"] = work.get("steps", 0) + ii.numel()
-        dj = torch.nonzero(~stepping & (qn > 0)).squeeze(1)
-        for qi in range(QUEUE_CAP):
-            rows = dj[qn[dj] > qi]
-            rows = rows[q_near[rows, qi] <= t[rows] * LEAF_WIDEN_T]
-            if any_hit:
-                rows = rows[prim[rows] < 0]
-            if not rows.numel():
-                continue
-            cnt = q_count[rows, qi]
-            slot = torch.clamp_max(q_first[rows, qi][:, None] + kk, last)
-            tt, uu, vv, ok = ray_tri(oa[rows, None], da[rows, None],
-                                     tv0[slot], te1[slot], te2[slot])
-            ok = (ok & (kk < cnt[:, None]) & (tt > lo[rows, None])
-                  & (tt <= t[rows, None]))
-            if any_hit:
-                j = torch.argmax(ok.to(torch.int8), dim=1, keepdim=True)
-                better = ok.any(dim=1)
-                tested = torch.where(better, j[:, 0] + 1, cnt)
-            else:
-                j = torch.argmin(torch.where(ok, tt, float("inf")), dim=1,
-                                 keepdim=True)
-                best, bs = tt.gather(1, j)[:, 0], slot.gather(1, j)[:, 0]
-                better = ok.gather(1, j)[:, 0] & (
-                    (best < t[rows]) | ((best == t[rows]) & (bs < prim[rows])))
-                tested = cnt
-            if work is not None:
-                work["tris"] = work.get("tris", 0) + int(tested.sum())
-            t[rows] = torch.where(better, tt.gather(1, j)[:, 0], t[rows])
-            prim[rows] = torch.where(better, slot.gather(1, j)[:, 0],
-                                     prim[rows])
-            u[rows] = torch.where(better, uu.gather(1, j)[:, 0], u[rows])
-            v[rows] = torch.where(better, vv.gather(1, j)[:, 0], v[rows])
-        qn[dj] = 0
-        done = (cur < 0) & (qn == 0)
-        if any_hit:
-            done |= prim >= 0
-        if bool(done.any()):
+        done = ws.walk_pass(torch.arange(ids.numel(), device=dev), any_hit,
+                            work)
+        if done.numel():
             fin = ids[done]
-            t_out[fin], prim_out[fin] = t[done], prim[done].int()
+            t, prim, u, v = ws.hits()
+            t_out[fin], prim_out[fin] = t[done], prim[done]
             u_out[fin], v_out[fin] = u[done], v[done]
-            keep = ~done
-            (ids, oa, da, inv, lo, t, prim, u, v, cur, sp, qn, stack_ref,
-             stack_near, q_first, q_count, q_near) = (
-                x[keep] for x in (ids, oa, da, inv, lo, t, prim, u, v, cur,
-                                  sp, qn, stack_ref, stack_near, q_first,
-                                  q_count, q_near))
+            keep = torch.ones_like(ids, dtype=torch.bool)
+            keep[done] = False
+            ids = ids[keep]
+            ws.keep(keep)
     return t_out, prim_out, u_out, v_out
 
 

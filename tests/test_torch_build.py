@@ -60,3 +60,18 @@ ptxas info    : Used 40 registers, 380 bytes cmem[0]
         "plain_c_kernel": dict(registers=40, spill_stores=0, spill_loads=0,
                                stack=0, smem=0)}
     assert "-Xptxas" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
+
+
+def test_ptxas_report_tells_template_kernels_apart():
+    text = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115traverse_kernelILb1EEEvN5evplp4WalkENS1_4RaysE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115traverse_kernelILb1EEEvN5evplp4WalkENS1_4RaysE
+    624 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 47 registers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115traverse_kernelILb0EEEvN5evplp4WalkENS1_4RaysE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115traverse_kernelILb0EEEvN5evplp4WalkENS1_4RaysE
+    624 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, 416 bytes cmem[0]
+"""
+    report = build.ptxas_report(text)
+    assert report["traverse_kernel<true>"]["registers"] == 47
+    assert report["traverse_kernel<false>"]["registers"] == 56

@@ -35,7 +35,20 @@ forceVsl), the path-tracing config `configs/box_field/box_field_pt.json`
 warm-up.  It renders the same full-size PT frame under each value of the
 traversal switch `trace/intersect.py:PACKET_IMPL`, holds the three
 kernels to each other cast by cast, and the three images to each other bit
-for bit.  It checks the outputs and the kernels
+for bit.  It drives the LVC technique (`box_field_ours.json` with its block
+renamed to lvcphotonfam, one frame: per-pixel light vertices, so
+incoherent shadow segments through traverse.cu, held exactly to
+traverse_plain on a sample of each cast kind), the textured livingroom
+configs `configs/livingroom/livingroom_ours.json` and `livingroom_pt.json`
+(192 triangles and the light: every cast takes the dense path and no
+traversal kernel may launch; the G-buffer's kd at the textured hits must
+equal sample_bilinear there and vary), and a checkpoint / resume of a
+small progressive Cornell run through the CLI (bit-equal to the run
+without a break; --gamma writes linear ** (1/2.2)).  It times each
+traversal kernel on the samples and the LVC casts with the walk records'
+padded leaf boxes and without (walk_pad_cost), and the photon splat with
+its ordered tile sums and with index_add_'s atomics
+(splat_accumulate_cost).  It checks the outputs and the kernels
 each path launched, times each pass, and renders small references on the
 card (the Cornell goldens, and 64x36 box_field frames against the same
 frames on the CPU).  Each phase prints one line; any failure raises and
@@ -64,6 +77,12 @@ PT_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_pt.json")
 PM_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_pm.json")
 VPL_CONFIG = os.path.join(HERE, "configs", "box_field", "box_field_vpl.json")
 CORNELL = os.path.join(HERE, "configs", "cornell")
+LIVINGROOM = os.path.join(HERE, "configs", "livingroom",
+                          "livingroom_ours.json")
+LIVINGROOM_PT = os.path.join(HERE, "configs", "livingroom",
+                             "livingroom_pt.json")
+# timing rounds of each record layout in walk_pad_cost (medians)
+PAD_ROUNDS = 5
 PT_FRAMES = 3            # timed PT frames through the CLI (+ the warm-up)
 SAMPLE_RAYS = 65_536
 # camera ray of the PT frame that grazes a leaf box's silhouette (ROADMAP
@@ -1146,6 +1165,7 @@ def read_counts() -> dict:
 IMAGE_KEYS = {"pt": ("outputFilename",),
               "photonfam": ("combinedFilename", "weightedVplFilename",
                             "weightedPhotonFilename")}
+IMAGE_KEYS["lvcphotonfam"] = IMAGE_KEYS["photonfam"]
 
 
 def cast_totals(casts: dict, frames: int) -> dict:
@@ -1156,15 +1176,17 @@ def cast_totals(casts: dict, frames: int) -> dict:
 
 def main_path(label, config, iterations, torch, kind, smi, launched=(),
               not_launched=(), nonzero=(), extra=None,
-              sample_casts=False) -> dict:
+              sample_casts=False, dense=False) -> dict:
     """Run `config` through the CLI at full size for `iterations` timed
     frames (plus the warm-up), with every kernel count set to 0 just
     before and read just after.  Checks the images (shape, finite, >= 0,
     the first of IMAGE_KEYS and those of `nonzero` not all zero), no
     dropped splat pairs, a timed
     frame, and that the run launched bvh_traverse and every kernel of
-    `launched` and none of `not_launched`; prints the phase line `label`,
-    with the fields `extra(run)` adds, and returns the run.  With
+    `launched` and none of `not_launched`; with dense (a scene of at most
+    BRUTE_FORCE_MAX_TRIS triangles, whose casts take the dense path), that
+    it launched no traversal kernel instead.  Prints the phase line
+    `label`, with the fields `extra(run)` adds, and returns the run.  With
     sample_casts, the run keeps a sample of each cast kind of kernel #1
     (LaunchTimer, cast_kind)."""
     import numpy as np
@@ -1215,10 +1237,12 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
                              f"{stats['dropped_splat_pairs']} pairs")
     if stats["numIterations"] < 1 or stat["numIterations"] < 1:
         raise AssertionError(f"{label}: no timed frame")
-    for k in ("bvh_traverse",) + tuple(launched):
+    required = tuple(launched) if dense else ("bvh_traverse",) + tuple(
+        launched)
+    for k in required:
         if launches[k] == 0:
             raise AssertionError(f"{label} never launched {k}: {launches}")
-    for k in not_launched:
+    for k in tuple(not_launched) + (tuple(TRAVERSALS) if dense else ()):
         if launches[k]:
             raise AssertionError(f"{label} launched {k}: {launches}")
     run = dict(stats=stats, stat=stat, imgs=imgs, launches=launches,
@@ -1444,6 +1468,254 @@ def pt_impls(torch) -> dict:
     return launches, counts
 
 
+def unpadded_walk(scene):
+    """The scene's BVH with walk records whose leaf boxes are not padded
+    (accel/bvh.py:walk_pad at WALK_PAD_REL = 0): the records before the
+    padding, for walk_pad_cost."""
+    import dataclasses
+    import torch
+    from evplp_tpu_torch.accel import bvh as bvh_mod
+    arrays = [getattr(scene.bvh, k).cpu().numpy() for k in bvh_mod.NODE_KEYS]
+    arrays += [x.cpu().numpy() for x in (scene.tris.v0, scene.tris.e1,
+                                         scene.tris.e2)]
+    real = bvh_mod.WALK_PAD_REL
+    bvh_mod.WALK_PAD_REL = 0.0
+    try:
+        nodes, _ = bvh_mod.walk_layout(*arrays)
+    finally:
+        bvh_mod.WALK_PAD_REL = real
+    return dataclasses.replace(scene.bvh, walk_nodes=torch.as_tensor(
+        nodes, device=scene.device))
+
+
+def walk_pad_cost(label, sets, scene, torch) -> dict:
+    """What the padded leaf boxes cost: each traversal kernel's time on
+    each ray set with the padded records and with the unpadded ones, in
+    turns (PAD_ROUNDS rounds, medians), the ordered walk's steps and
+    triangle tests with each on FRAME_OPS_SAMPLE consecutive rays, and the
+    rays on which the unpadded records change the kernel's result."""
+    import statistics
+    from evplp_tpu_torch.accel.bvh import walk_pad
+    t0 = time.perf_counter()
+    bare = unpadded_walk(scene)
+    out = {}
+    for set_name, ray_set in sets.items():
+        o, d, lo, hi, any_hit = ray_set[:5]
+        per = {}
+        for name, spec in TRAVERSALS.items():
+            fn = getattr(traversal_module(name), spec["cuda"])
+            times = {"padded": [], "unpadded": []}
+            for _ in range(PAD_ROUNDS):
+                for layout, bvh in (("padded", scene.bvh),
+                                    ("unpadded", bare)):
+                    times[layout].append(cuda_ms(
+                        lambda: fn(scene.tris, bvh, o, d, lo, hi, any_hit),
+                        reps=5))
+            changed = differs(fn(scene.tris, scene.bvh, o, d, lo, hi,
+                                 any_hit),
+                              fn(scene.tris, bare, o, d, lo, hi, any_hit),
+                              lo, hi, any_hit)
+            per[name] = dict(**{f"{k}_ms": statistics.median(v)
+                                for k, v in times.items()},
+                             rays_changed=int(changed.sum()))
+        win = middle_window(o.shape[0], FRAME_OPS_SAMPLE)
+        sub = tuple(x[win].contiguous() for x in (o, d, lo, hi))
+        per["ordered_walk"] = {
+            layout: run_walk("ordered", scene.tris, bvh, *sub, any_hit)[2]
+            for layout, bvh in (("padded", scene.bvh), ("unpadded", bare))}
+        out[set_name] = per
+    nodes = scene.bvh.node_min.cpu().numpy(), scene.bvh.node_max.cpu().numpy()
+    phase("walk_pad_cost", sets=label, pad=float(walk_pad(*nodes)),
+          per_set=out, rounds=PAD_ROUNDS, wall_s=time.perf_counter() - t0)
+    return out
+
+
+def lvc_config(directory) -> str:
+    """box_field_ours.json with its technique block renamed to
+    lvcphotonfam (absolute scene paths), written into directory."""
+    path = write_config(CONFIG, directory, {})
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["lvcphotonfam"] = cfg.pop("photonfam")
+    path = os.path.join(directory, "box_field_lvc.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def lvc_extra(run) -> dict:
+    """The LVC frame's shadow segments (one a pixel per step of the
+    gather), the live ones, and kernel #1's any-hit time per frame: the
+    part of lvc_gather that #1 takes."""
+    frames = run["frames"]
+    shadow = run["casts"].get("bvh_traverse.any_hit", {})
+    return dict(shadow_segments_per_frame=shadow.get("rays", 0) / frames,
+                live_shadow_segments_per_frame=shadow.get("live_rays", 0)
+                / frames,
+                shadow_casts_per_frame=shadow.get("launches", 0) / frames,
+                kernel_any_hit_ms_per_frame=shadow.get("ms", 0.0) / frames)
+
+
+def texture_check(job, torch) -> dict:
+    """The textures of a textured scene are really used: the full-size
+    G-buffer's kd at every pixel whose triangle has a map_Kd layer equals
+    sample_bilinear of that layer at the hit's texcoords, and takes many
+    values on each layer."""
+    from evplp_tpu_torch.integrators.gbuffer import trace_gbuffer
+    from evplp_tpu_torch.scene import textures
+    from evplp_tpu_torch.trace.intersect import intersect_closest
+    t0 = time.perf_counter()
+    sc, w, h = job.scene, job.width, job.height
+    gbuf = trace_gbuffer(sc, w, h, None)
+    o, d = sc.camera.generate_rays(w, h, None, device=sc.device)
+    hit = intersect_closest(sc.tris, sc.bvh, o, d, t_min=1e-4)
+    prim = torch.clamp_min(hit.prim, 0).long()
+    layer = sc.tri_shade[prim, 11].to(torch.int32)
+    tex = hit.valid & (layer >= 0)
+    want = textures.sample_bilinear(
+        sc.tex_data, sc.tex_size, layer[tex],
+        textures.hit_uv(sc, prim[tex], hit.u[tex], hit.v[tex]))
+    if not torch.equal(gbuf.kd[tex], want):
+        raise AssertionError("G-buffer kd differs from sample_bilinear at "
+                             "the textured hits")
+    per_layer = {}
+    for l in range(sc.tex_data.shape[0]):
+        kd = gbuf.kd[tex & (layer == l)]
+        per_layer[l] = dict(pixels=int(kd.shape[0]),
+                            distinct_kd=int(torch.unique(kd, dim=0).shape[0]),
+                            mean_kd=kd.mean(0).tolist() if kd.numel() else [])
+        if kd.shape[0] and per_layer[l]["distinct_kd"] < 2:
+            raise AssertionError(f"texture layer {l}: constant kd")
+    if not any(x["distinct_kd"] > 100 for x in per_layer.values()):
+        raise AssertionError(f"textures barely vary: {per_layer}")
+    out = dict(layers=int(sc.tex_data.shape[0]),
+               tex_shape=list(sc.tex_data.shape), textured_pixels=int(
+                   tex.sum()), per_layer=per_layer,
+               wall_s=time.perf_counter() - t0)
+    phase("texture_check", **out)
+    return out
+
+
+def resume_check(torch) -> dict:
+    """Checkpoint and resume through the CLI on the card: a progressive
+    clamped Cornell run at 64x64 for 4 frames against 2 frames with
+    --checkpoint, then --resume and 2 more; the final images must be equal
+    bit for bit, and a resume with --gamma must write
+    linear ** (1 / 2.2)."""
+    import numpy as np
+    from evplp_tpu_torch import __main__ as cli
+    from evplp_tpu_torch.runtime.checkpoint import load_checkpoint
+    from evplp_tpu_torch.utils.image import load_pfm
+
+    t0 = time.perf_counter()
+    block = dict(rngOffset=3, timeLimitMs=-1.0, frameMode="accumulate",
+                 useJitter=True, useStat=False, numLightPaths=1000,
+                 numVplLightPaths=8, numMaxBounces=2, radiusPercentage=0.05,
+                 misMode="geometryClamp", DoProgressive=True,
+                 AlphaProgressive=0.7, combinedFilename="out/c.pfm",
+                 weightedVplFilename="out/c_vpl.pfm",
+                 weightedPhotonFilename="out/c_pm.pfm")
+    names = ("c", "c_vpl", "c_pm")
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(frames, sub, *flags):
+            d = os.path.join(tmp, sub)
+            os.makedirs(d)
+            cfg = write_config(os.path.join(CORNELL, "cornell_ours.json"), d,
+                               dict(block, numMaxIteration=frames), (64, 64))
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli.main([cfg, "--output-dir", os.path.join(d, "out"),
+                             *flags]) != 0:
+                    raise AssertionError(f"resume: the CLI failed ({sub})")
+            return {n: load_pfm(os.path.join(d, "out", f"{n}.pfm"))
+                    for n in names}
+
+        ck = os.path.join(tmp, "ck.npz")
+        whole = run(4, "whole")
+        run(2, "first", "--checkpoint", ck, "--checkpoint-every", "1")
+        ck_iters = load_checkpoint(ck, "cuda")[1]
+        rest = run(4, "rest", "--resume", ck)
+        shown = run(4, "shown", "--resume", ck, "--gamma")
+    equal = {n: bool(np.array_equal(rest[n], whole[n])) for n in names}
+    gamma_err = {n: float(np.abs(shown[n] - np.power(
+        np.maximum(whole[n], 0.0), 1.0 / 2.2)).max()) for n in names}
+    out = dict(checkpoint_iterations=ck_iters, bit_equal=equal,
+               gamma_max_abs_err=gamma_err,
+               combined_max=float(whole["c"].max()),
+               wall_s=time.perf_counter() - t0)
+    phase("resume", **out)
+    if ck_iters != 2 or not all(equal.values()) or not whole["c"].any():
+        raise AssertionError(f"resume: {out}")
+    for n in names:
+        np.testing.assert_allclose(shown[n], np.power(
+            np.maximum(whole[n], 0.0), 1.0 / 2.2), rtol=1e-6, atol=0)
+    return out
+
+
+def splat_accumulate_cost(job, torch) -> dict:
+    """The photon splat's ordered tile sums (photon_splat.accumulate_tiles)
+    against the index_add_ they replaced, on one full-size "ours" frame's
+    G-buffer and photon map, in turns (PAD_ROUNDS rounds, medians of
+    photon_splat_binned's time, CUDA events): what the order costs, and
+    whether each gives the same image on every run.  The ordered sums
+    must."""
+    import math
+    import statistics
+    from evplp_tpu_torch.core.sampling import iteration_key
+    from evplp_tpu_torch.integrators import photon_splat as ps
+    from evplp_tpu_torch.integrators.gbuffer import trace_gbuffer
+    from evplp_tpu_torch.integrators.light_trace import trace_light_paths
+    t0 = time.perf_counter()
+    sc, p = job.scene, job.params
+    gbuf = trace_gbuffer(sc, job.width, job.height, None)
+    pm = trace_light_paths(sc, iteration_key(0, 0, "cuda"),
+                           p.num_light_paths, p.num_max_bounces + 1)
+    radius = max(sc.bounding_radius * p.radius_percentage, 1e-6)
+    pdf_mc = (p.num_vpl_light_paths / p.num_light_paths) / math.pi / (
+        radius * radius)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+    args = (sc, gbuf, pm, f32(radius), p.mis_mode, f32(pdf_mc),
+            f32(1.0 / sc.total_area), 1.0 / p.num_light_paths, job.width,
+            job.height)
+
+    def index_add(acc, tiles, lengths, contrib):
+        acc.index_add_(0, torch.repeat_interleave(
+            tiles, lengths, output_size=contrib.shape[0]), contrib)
+
+    real = ps.accumulate_tiles
+    variants = {"ordered": real, "index_add": index_add}
+    times = {k: [] for k in variants}
+    imgs = {k: [] for k in variants}
+    try:
+        for _ in range(PAD_ROUNDS):
+            for name, fn in variants.items():
+                ps.accumulate_tiles = fn
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                img, dropped = ps.photon_splat_binned(*args)
+                ev[1].record()
+                torch.cuda.synchronize()
+                times[name].append(ev[0].elapsed_time(ev[1]))
+                imgs[name].append(img)
+    finally:
+        ps.accumulate_tiles = real
+    same = {k: all(torch.equal(v[0], x) for x in v[1:])
+            for k, v in imgs.items()}
+    out = dict(ms={k: statistics.median(v) for k, v in times.items()},
+               all_ms=times, same_on_every_run=same,
+               max_abs_diff=float((imgs["ordered"][0]
+                                   - imgs["index_add"][0]).abs().max()),
+               image_max=float(imgs["ordered"][0].abs().max()),
+               dropped=int(dropped), rounds=PAD_ROUNDS,
+               wall_s=time.perf_counter() - t0)
+    phase("splat_accumulate_cost", **out)
+    if not same["ordered"]:
+        raise AssertionError("the ordered splat differs between runs")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1498,6 +1770,7 @@ def main() -> int:
         s: {w: c for e in entries.values() for w, c in e["counts"][s].items()}
         for s in sets})
     traversal_bounds(entries)
+    walk_pad_cost("samples", sets, scene, torch)
     phase("kernel_check_done", triangles=scene.num_triangles,
           nodes=scene.bvh.node_min.shape[0], bvh_depth=scene.bvh.depth,
           walk_records=scene.bvh.walk_nodes.shape[0],
@@ -1522,6 +1795,7 @@ def main() -> int:
     phase("pass_breakdown", config=os.path.relpath(CONFIG, HERE),
           ms_per_frame=passes, sum_ms=sum(passes.values()),
           wall_s=time.perf_counter() - t0)
+    splat_accumulate_cost(job, torch)
     del job, scene
 
     # ---- 4: the VSL sample kernel's work shape, and the kernel vs plain
@@ -1576,11 +1850,63 @@ def main() -> int:
         for k, v in run["launches"].items():
             launches[k] += v
 
+    # ---- 8: the LVC technique (box_field, per-pixel light vertices:
+    # incoherent shadow segments through #1) ----
+    with tempfile.TemporaryDirectory() as tmp:
+        lvc_cfg = lvc_config(tmp)
+        lrun = main_path("lvc_main_path", lvc_cfg, 1, torch, kind, smi,
+                         not_launched=("vsl_sample",),
+                         nonzero=("weightedVplFilename",), extra=lvc_extra,
+                         sample_casts=True)
+        for k, v in lrun["launches"].items():
+            launches[k] += v
+        ljob = load_config(lvc_cfg, device="cuda")
+        sampled_casts_check("lvc_main_path_casts", lrun, ljob.scene, torch)
+        walk_pad_cost("lvc_casts", lrun["samples"], ljob.scene, torch)
+        del lrun
+        t0 = time.perf_counter()
+        passes = pass_breakdown(ljob, torch, (
+            "trace_gbuffer", "trace_light_paths", "lvc_gather",
+            "photon_splat_binned", "light_image"))
+        phase("pass_breakdown", config="box_field_ours.json as lvcphotonfam",
+              ms_per_frame=passes, sum_ms=sum(passes.values()),
+              wall_s=time.perf_counter() - t0)
+        del ljob
+
+    # ---- 9: the textured livingroom scene (192 triangles and the light:
+    # every cast takes the dense path, no traversal kernel) ----
+    rjob = load_config(LIVINGROOM, device="cuda")
+    texture_check(rjob, torch)
+    main_path("livingroom_main_path", LIVINGROOM, 1, torch, kind, smi,
+              not_launched=("vsl_sample",),
+              nonzero=("weightedVplFilename", "weightedPhotonFilename"),
+              dense=True)
+    t0 = time.perf_counter()
+    passes = pass_breakdown(rjob, torch, (
+        "trace_gbuffer", "trace_light_paths", "vpl_gather",
+        "photon_splat_binned", "light_image"))
+    phase("pass_breakdown", config=os.path.relpath(LIVINGROOM, HERE),
+          ms_per_frame=passes, sum_ms=sum(passes.values()),
+          wall_s=time.perf_counter() - t0)
+    del rjob
+    main_path("livingroom_pt_main_path", LIVINGROOM_PT, 1, torch, kind, smi,
+              not_launched=("vsl_sample",), dense=True)
+    t0 = time.perf_counter()
+    passes = pass_breakdown(load_config(LIVINGROOM_PT, device="cuda"), torch,
+                            ("trace_gbuffer", "render_pt_frame",
+                             "light_image"))
+    phase("pass_breakdown", config=os.path.relpath(LIVINGROOM_PT, HERE),
+          ms_per_frame=passes, sum_ms=sum(passes.values()),
+          wall_s=time.perf_counter() - t0)
+
+    # ---- 10: checkpoint and resume through the CLI ----
+    resume_check(torch)
+
     t0 = time.perf_counter()
     phase("reference_check", max_abs_diff=reference_check(),
           wall_s=time.perf_counter() - t0)
 
-    # ---- 8: kernels line, card line, result ----
+    # ---- 11: kernels line, card line, result ----
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was never launched: {launches}")
     entries["vsl_sample"] = vsl_entry

@@ -1,10 +1,14 @@
 """CLI entry: python -m evplp_tpu_torch config.json [--output-dir DIR]
-[--max-wall-s S] [--device cuda|cpu]
+[--max-wall-s S] [--device cuda|cpu] [--gamma] [--checkpoint PATH
+[--checkpoint-every N]] [--resume PATH]
 
-Runs a reference-format config on the card: a "pt" block (path tracing) or
-a "photonfam" block (EVPLP, or VSL with forceVsl); "lvcphotonfam" raises
-NotImplementedError.  The CPU runs only when asked for with --device cpu;
-without a card the CLI raises.
+Runs a reference-format config on the card: a "pt" block (path tracing), a
+"photonfam" block (EVPLP, or VSL with forceVsl) or an "lvcphotonfam" block
+(the LVC gather), textured scenes included.  --gamma writes the outputs
+through the display transform pow 1/2.2; --checkpoint, --checkpoint-every
+and --resume save and resume a photonfam run's progressive state (a pt
+config takes only --gamma).  The CPU runs only when asked for with
+--device cpu; without a card the CLI raises.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ def resolve_device(device: str) -> torch.device:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="evplp_tpu_torch",
-        description="EVPLP renderer on PyTorch/CUDA (pt, photonfam)")
+        description="EVPLP renderer on PyTorch/CUDA (pt / photonfam / "
+                    "lvcphotonfam)")
     ap.add_argument("config", help="reference-format JSON scene config")
     ap.add_argument("--output-dir", default=None,
                     help="redirect configured output files into this dir")
@@ -35,13 +40,30 @@ def main(argv=None):
                     help="hard wall-clock cap regardless of timeLimitMs")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
+    ap.add_argument("--gamma", action="store_true",
+                    help="apply the display gamma (pow 1/2.2) to saved "
+                         "outputs; the dumps are linear otherwise")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write progressive-state checkpoints here")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", default=None,
+                    help="resume from a checkpoint file")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
     from evplp_tpu_torch.runtime.render import render_config
 
+    kwargs = {"max_wall_s": args.max_wall_s, "display_gamma": args.gamma}
+    with open(args.config) as f:
+        is_pt = "pt" in json.load(f)
+    if not is_pt:
+        if args.checkpoint:
+            kwargs.update(checkpoint_path=args.checkpoint,
+                          checkpoint_every=args.checkpoint_every)
+        if args.resume:
+            kwargs["resume_from"] = args.resume
     result = render_config(args.config, output_dir=args.output_dir,
-                           max_wall_s=args.max_wall_s, device=dev)
+                           device=dev, **kwargs)
     print(json.dumps({"numIterations": result.num_iterations,
                       "timeMs": round(result.time_ms, 1),
                       **result.stats}, indent=2))

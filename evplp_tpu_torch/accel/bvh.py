@@ -18,9 +18,11 @@ packed16 forms are TPU memory layouts and are not built.
 Every BVH also gets the layout that the port's three traversal kernels
 read (`walk_layout`; csrc/traverse.cu, packet7.cu, packet.cu): one 64-byte
 record per internal node holding both children's boxes and references, and
-one 48-byte record per triangle.  It is a bit-for-bit copy of the node and
-triangle arrays; the packed layout and the skip-pointer arrays stay for the
-plain walks, the JAX comparisons and packet7's slot ids.
+one 48-byte record per triangle.  Its leaf boxes are padded in space by
+`walk_pad` (see there); internal boxes and triangles are bit-for-bit
+copies; the
+packed layout and the skip-pointer arrays stay for the plain walks, the JAX
+comparisons and packet7's slot ids.
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ PACKED_KEYS = ("pk_tri_rows", "pk_meta", "pk_bounds", "pk_prim_map")
 # floats of one walk node record and of one walk triangle record
 WALK_NODE_FLOATS = 16
 WALK_TRI_FLOATS = 12
+# the walk records' leaf boxes are padded by WALK_PAD_REL x the scene's largest
+# coordinate magnitude (walk_pad)
+WALK_PAD_REL = 2.0 ** -16
 
 
 @dataclass(frozen=True)
@@ -198,9 +203,45 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     return arrays, order
 
 
+def walk_pad(nmin, nmax) -> np.float32:
+    """The absolute amount by which walk_layout pads every box, on each
+    side of each axis: WALK_PAD_REL x S, S the largest coordinate magnitude
+    of the root box (so of every vertex).
+
+    The kernels cull a leaf by its box (csrc/ray_common.cuh leaf_admits),
+    the JAX package's walk never does, so the leaf box must admit every ray
+    on which Moller-Trumbore reports a hit in the leaf.  MT's edge tests
+    are the signs of triple products [d, e, T] (T = o - v0), each rounded
+    within about gamma_6 |d| |e| |T|, so a ray that MT accepts passes within
+    gamma_6 |T| / sin(phi) of the triangle, phi the angle between the ray
+    and the edge: for |T| <= 4 S and sin(phi) >= 0.1, below 240 u S
+    (u = 2^-24), under the pad's 256 u S.  The widened t_far of leaf_admits
+    still covers the slab test's own rounding.  Only leaf boxes are padded:
+    the JAX walk tests internal boxes exactly, and a padded internal box
+    would admit hits that it culls (on rays aimed at triangle edges, 40 of
+    8,192).  A padded leaf reached through its exact ancestors is the JAX
+    walk's "test the leaf when the walk reaches it"; extra admitted leaves
+    only add triangle tests, so the least (t, slot) is unchanged."""
+    if nmin.shape[0] == 0:
+        return np.float32(0.0)
+    s = max(float(np.abs(nmin[0]).max()), float(np.abs(nmax[0]).max()))
+    return np.float32(WALK_PAD_REL * s)
+
+
+def pad_boxes(lo, hi, pad):
+    """(lo - pad, hi + pad) in float32, rounded outwards."""
+    lo64 = np.asarray(lo, np.float64) - float(pad)
+    hi64 = np.asarray(hi, np.float64) + float(pad)
+    plo, phi = lo64.astype(np.float32), hi64.astype(np.float32)
+    plo = np.where(plo > lo64, np.nextafter(plo, np.float32(-np.inf)), plo)
+    phi = np.where(phi < hi64, np.nextafter(phi, np.float32(np.inf)), phi)
+    return plo, phi
+
+
 def walk_layout(nmin, nmax, skip, first, count, v0, e1, e2):
     """The traversal kernels' records, as numpy: (nodes (M, 16) f32,
-    tris (T, 12) f32).  Boxes and vertices are copied bit for bit.
+    tris (T, 12) f32).  Leaf boxes are padded by walk_pad; internal boxes
+    and vertices are copied bit for bit.
 
     Node record 0 is a super-root whose left child is the root and whose
     right child is an empty leaf; record 1 + k is the k-th internal node in
@@ -218,12 +259,15 @@ def walk_layout(nmin, nmax, skip, first, count, v0, e1, e2):
     left = internal + 1
     kids = np.stack([np.concatenate([[0], left]),
                      np.concatenate([[0], skip[left]])], axis=1)  # (M, 2)
+    leaf = (count > 0)[:, None]
+    lo, hi = pad_boxes(nmin, nmax, walk_pad(nmin, nmax))
+    lo, hi = np.where(leaf, lo, nmin), np.where(leaf, hi, nmax)
     nodes = np.zeros((kids.shape[0], WALK_NODE_FLOATS), np.float32)
     words = nodes.view(np.int32)
     for c in range(2):
         k = kids[:, c]
-        nodes[:, 6 * c:6 * c + 3] = nmin[k]
-        nodes[:, 6 * c + 3:6 * c + 6] = nmax[k]
+        nodes[:, 6 * c:6 * c + 3] = lo[k]
+        nodes[:, 6 * c + 3:6 * c + 6] = hi[k]
         words[:, 12 + c] = np.where(count[k] > 0, ~first[k], rec[k])
         words[:, 14 + c] = count[k]
     # the super-root's right child: an empty leaf (no triangles)

@@ -107,9 +107,10 @@ __device__ __forceinline__ bool ray_tri(const Ray& r, float v0x, float v0y,
 //
 // Record m (64 bytes, four float4) holds both children of an internal
 // node: [left box min3 max3, right box min3 max3, left ref, right ref, left
-// count, right count], the last four as int32.  A ref >= 0 is an internal
-// child's record; a ref < 0 is a leaf whose first triangle (slot) is ~ref
-// and whose triangle count is the count word.  Record 0 is a super-root
+// count, right count], the last four as int32; leaf boxes are padded
+// (walk_pad).  A ref >= 0 is an internal child's record; a ref < 0 is a
+// leaf whose first triangle (slot) is ~ref and whose triangle count is the
+// count word.  Record 0 is a super-root
 // whose left child is the root.  Triangle record s (48 bytes) is
 // [v0, 0, e1, 0, e2, 0].  Slot ids grow with DFS leaf order, so the JAX
 // CPU walk's "first triangle on ties" is the least slot among the hits at
@@ -133,8 +134,10 @@ struct Walk {
 // leaf box's silhouette to within rounding still tests the leaf, and t by
 // (1 + 2 gamma_3)^2, room for the rounding of both the box's t_near and the
 // triangle's t, so that a leaf whose box face holds a hit at a tie in t is
-// still tested.  Internal boxes keep the exact slab_admits, as the JAX CPU
-// walk tests them.
+// still tested.  Leaf boxes are also padded in space
+// (accel/bvh.py:walk_pad), which covers a Moller-Trumbore hit that MT's own
+// rounding places just outside the leaf's exact box.  Internal boxes are
+// exact and keep the exact slab_admits, as the JAX CPU walk tests them.
 __device__ __forceinline__ bool leaf_admits(float t_near, float t_far,
                                             float t) {
   return t_near <= t_far * kLeafWiden && t_far >= 0.0f &&

@@ -11,7 +11,8 @@ from dataclasses import dataclass
 
 import torch
 
-from evplp_tpu_torch.scene.scene import SceneData, fetch_hit_shading
+from evplp_tpu_torch.scene.scene import SceneData
+from evplp_tpu_torch.scene.textures import fetch_hit_shading
 from evplp_tpu_torch.trace.intersect import intersect_closest
 
 
@@ -37,7 +38,8 @@ def trace_gbuffer(scene: SceneData, width: int, height: int,
     valid = hit.valid
     prim = torch.clamp_min(hit.prim, 0).long()
     position = o + hit.t[:, None] * d
-    kd, ks, ns, normal, is_light = fetch_hit_shading(scene, prim)
+    kd, ks, ns, normal, is_light = fetch_hit_shading(scene, prim, hit.u,
+                                                     hit.v)
     v3 = valid[:, None]
     return GBuffer(
         position=torch.where(v3, position, 0.0),

@@ -24,7 +24,8 @@ from evplp_tpu_torch.core import brdf, rng
 from evplp_tpu_torch.core import mathutil as mu
 from evplp_tpu_torch.core.light import light_sample
 from evplp_tpu_torch.core.sampling import uniform_not_one
-from evplp_tpu_torch.scene.scene import SceneData, fetch_hit_shading
+from evplp_tpu_torch.scene.scene import SceneData
+from evplp_tpu_torch.scene.textures import fetch_hit_shading
 from evplp_tpu_torch.trace.intersect import intersect_closest
 
 FLAG_VPL = 1
@@ -94,7 +95,8 @@ def trace_light_paths(scene: SceneData, key: torch.Tensor, num_paths: int,
                                 t_max=torch.where(active, 3.0e38, 0.0))
         prim = torch.clamp_min(hit.prim, 0).long()
         next_pos = position + hit.t[:, None] * direction
-        kd, ks, ns, geom_n, is_light = fetch_hit_shading(scene, prim)
+        kd, ks, ns, geom_n, is_light = fetch_hit_shading(
+            scene, prim, hit.u, hit.v)
 
         # rejections: backface, emitter, black material
         ok = active & hit.valid

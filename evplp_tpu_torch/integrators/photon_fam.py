@@ -2,10 +2,10 @@
 `integrators/photon_fam.py`).
 
 One frame = G-buffer -> light tracing -> VPL gather (or, with forceVsl,
-the VSL gather) -> photon splat -> emitter image, accumulated into a
-FrameState.  The progressive-mode scalars (photon radius, clamping value,
-pdf_mc, VSL radius) are arguments, so the schedule can change them every
-frame.  The LVC branch is not ported yet and raises NotImplementedError.
+the VSL gather; with lvc, the LVC gather) -> photon splat -> emitter
+image, accumulated into a FrameState.  The progressive-mode scalars
+(photon radius, clamping value, pdf_mc, VSL radius) are arguments, so the
+schedule can change them every frame.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from evplp_tpu_torch.integrators.gbuffer import (light_image, trace_gbuffer,
                                                  zero_gbuffer)
 from evplp_tpu_torch.integrators.light_trace import (trace_light_paths,
                                                      zero_photon_map)
+from evplp_tpu_torch.integrators.lvc import lvc_gather
 from evplp_tpu_torch.integrators.photon_splat import photon_splat_binned
 from evplp_tpu_torch.integrators.vpl import vpl_gather
 from evplp_tpu_torch.integrators.vsl import vsl_gather
@@ -78,8 +79,6 @@ def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
                      clamping_value: float, pdf_mc: float,
                      vsl_radius: float = 0.0) -> FrameState:
     """Advance one iteration.  key is the frame's threefry key."""
-    if cfg.lvc:
-        raise NotImplementedError("lvcphotonfam (LVC gather) is not ported yet")
     dev = scene.device
     key = key.to(dev)
 
@@ -105,6 +104,10 @@ def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
     if cfg.do_vpl and cfg.num_vpl_light_paths > 0:
         if cfg.force_vsl:
             img = vsl_gather(scene, gbuf, pm, rng.fold_in(key, 2), vsl_radius,
+                             cfg.num_vpl_light_paths)
+        elif cfg.lvc:
+            img = lvc_gather(scene, gbuf, pm, rng.fold_in(key, 3),
+                             cfg.mis_mode, pdf_mc, clamping_value,
                              cfg.num_vpl_light_paths)
         else:
             img = vpl_gather(scene, gbuf, pm, cfg.mis_mode, pdf_mc,

@@ -157,6 +157,17 @@ def _blockify(x: torch.Tensor, width: int, height: int, tile: int):
     return x.reshape((txn * tyn, tile * tile) + rest)
 
 
+def accumulate_tiles(acc: torch.Tensor, tiles: torch.Tensor,
+                     lengths: torch.Tensor, contrib: torch.Tensor) -> None:
+    """acc[tiles[i]] += the sum of the i-th run of lengths[i] consecutive
+    rows of contrib; the tiles are distinct.  Each run is summed in order,
+    with no atomics, so a frame is the same bit for bit on every run
+    (index_add_'s atomics on CUDA sum in another order each time, and a
+    resumed run must equal one without a break)."""
+    acc[tiles] += torch.segment_reduce(contrib, "sum", lengths=lengths,
+                                       axis=0)
+
+
 def photon_splat_binned(scene: SceneData, gbuf: GBuffer, pm: PhotonMap,
                         radius, mis_mode: int, pdf_mc, clamping_value,
                         inv_num_light_paths, width: int, height: int,
@@ -208,14 +219,26 @@ def photon_splat_binned(scene: SceneData, gbuf: GBuffer, pm: PhotonMap,
                       device=dev)
     n_pairs = tid.shape[0]
     step = max(1, SPLAT_BLOCK_ELEMS // (tile * tile))
+    # the runs of one tile in the sorted pairs, cut at every chunk's start,
+    # and each chunk's first run, found once for the frame
+    new_run = torch.ones(n_pairs, dtype=torch.bool, device=dev)
+    new_run[1:] = tid[1:] != tid[:-1]
+    new_run[::step] = True
+    run_start = torch.nonzero(new_run).squeeze(1)
+    run_tile = tid[run_start]
+    run_len = torch.diff(run_start, append=torch.tensor([n_pairs],
+                                                        device=dev))
+    chunk_run = torch.searchsorted(run_start, torch.arange(
+        0, n_pairs, step, device=dev)).tolist() + [run_start.shape[0]]
     evaluated = 0
-    for s in range(0, n_pairs, step):
+    for c, s in enumerate(range(0, n_pairs, step)):
         t_ids = tid[s:s + step]
         rec = {key: v[pair_photon[s:s + step]][:, None]
                for key, v in ph.items()}
         contrib = _splat_eval(rec, *(b[t_ids] for b in blocks), r2, kde,
                               mis_mode, clamping_value)
-        acc.index_add_(0, t_ids, contrib)
+        runs = slice(chunk_run[c], chunk_run[c + 1])
+        accumulate_tiles(acc, run_tile[runs], run_len[runs], contrib)
         evaluated += t_ids.shape[0]
     img = acc.reshape(tyn, txn, tile, tile, 3).transpose(1, 2)
     img = img.reshape(tyn * tile, txn * tile, 3)[:height, :width]

@@ -32,7 +32,8 @@ from evplp_tpu_torch.core import rng
 from evplp_tpu_torch.core.light import light_pdf_a, light_sample
 from evplp_tpu_torch.core.sampling import uniform_not_one
 from evplp_tpu_torch.integrators.gbuffer import GBuffer
-from evplp_tpu_torch.scene.scene import SceneData, fetch_hit_shading
+from evplp_tpu_torch.scene.scene import SceneData
+from evplp_tpu_torch.scene.textures import fetch_hit_shading
 from evplp_tpu_torch.trace.intersect import (Hit, closest_and_segment,
                                              intersect_closest,
                                              occluded_segment)
@@ -84,7 +85,8 @@ def _process_hit(scene, prev_position, direction, brdf_pdf_w, attenuation,
     prim = torch.clamp_min(hit.prim, 0).long()
     hit_ok = active & hit.valid
     next_position = prev_position + hit.t[:, None] * direction
-    kd, ks, ns, geom_n, is_light_row = fetch_hit_shading(scene, prim)
+    kd, ks, ns, geom_n, is_light_row = fetch_hit_shading(
+        scene, prim, hit.u, hit.v)
 
     backface = mu.dot(geom_n, direction) > 0.0
     hit_ok = hit_ok & ~backface

@@ -15,8 +15,12 @@ def to_image(flat: torch.Tensor, width: int, height: int) -> np.ndarray:
 
 
 def composite(vpl, photon, light, vpl_scale=1.0, photon_scale=1.0,
-              light_scale=1.0) -> torch.Tensor:
-    """The reference's final pass over (N, 3) buffers."""
+              light_scale=1.0, gamma: bool = False) -> torch.Tensor:
+    """The reference's final pass over (N, 3) buffers; with gamma, the
+    display transform pow(max(x, 0), 1/2.2)."""
     gi_mask = (light[:, 0:1] * light_scale <= 0.0).to(torch.float32)
-    return (gi_mask * (vpl * vpl_scale + photon * photon_scale)
-            + light * light_scale)
+    s = (gi_mask * (vpl * vpl_scale + photon * photon_scale)
+         + light * light_scale)
+    if gamma:
+        s = torch.pow(torch.clamp_min(s, 0.0), 1.0 / 2.2)
+    return s

@@ -1,6 +1,7 @@
-"""Headless frame loops: stop conditions, progressive schedule, dumps and
-stats (counterpart of `run_photon_fam` and `run_pt` in the JAX package's
-`runtime/loop.py`, without checkpoints, profiling or multi-device runs).
+"""Headless frame loops: stop conditions, progressive schedule, dumps,
+stats, checkpoints and the display gamma (counterpart of `run_photon_fam`
+and `run_pt` in the JAX package's `runtime/loop.py`, without profiling or
+multi-device runs).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from evplp_tpu_torch.integrators.photon_fam import (
     FrameState, PhotonFamConfig, init_state, photon_fam_frame)
 from evplp_tpu_torch.integrators.pt import render_pt_frame
 from evplp_tpu_torch.runtime import film
+from evplp_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from evplp_tpu_torch.scene.config import RenderJob
 from evplp_tpu_torch.utils import image as im
 
@@ -134,10 +136,21 @@ def _frame_config(job: RenderJob) -> PhotonFamConfig:
 
 def run_photon_fam(job: RenderJob, output_dir: str | None = None,
                    max_wall_s: float | None = None,
-                   progress_every: int = 20) -> RunResult:
-    """A photonfam run following the reference renderer's loop, on the
-    device the job's scene lives on.  The first frame is a warm-up outside the clock
-    (it builds the kernels), as the reference's clock excludes its setup."""
+                   progress_every: int = 20,
+                   checkpoint_path: str | None = None,
+                   checkpoint_every: int | None = None,
+                   resume_from: str | None = None,
+                   display_gamma: bool = False) -> RunResult:
+    """A photonfam / lvcphotonfam run following the reference renderer's
+    loop, on the device the job's scene lives on.  The first frame is a
+    warm-up outside the clock (it builds the kernels), as the reference's
+    clock excludes its setup.
+
+    checkpoint_path / checkpoint_every: write the progressive state there
+    every that many frames and at the end (runtime/checkpoint.py);
+    resume_from: start from such a checkpoint (either package's).
+    display_gamma: pow 1/2.2 on the saved outputs (the dumps are linear
+    otherwise)."""
     p = job.params
     scene = job.scene
     dev = scene.device
@@ -153,6 +166,11 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
                                 vsl_radius0)
     cfg = _frame_config(job)
     state = init_state(cfg, dev)
+    iters = 0
+    if resume_from:
+        state, iters, fields = load_checkpoint(resume_from, dev)
+        for k in ("radius", "clamp", "clamp_start", "vsl_radius", "pdf_mc"):
+            setattr(sched, k, fields[k])
 
     def frame(st, iteration):
         return photon_fam_frame(scene, cfg, st,
@@ -164,7 +182,6 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
     t0 = time.perf_counter()
     prev_ms = 0.0
     pacer = BudgetPacer(p.time_limit_ms, t0)
-    iters = 0
 
     def elapsed_ms():
         return (time.perf_counter() - t0) * 1000.0
@@ -182,6 +199,9 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
                   f"| {frame_ms:.1f}ms/frame")
         if p.do_progressive:
             sched.update(iters)
+        if checkpoint_path and checkpoint_every and \
+                iters % checkpoint_every == 0:
+            save_checkpoint(checkpoint_path, state, iters, sched)
         if p.write_every_frame:
             path = _out_path(p.weighted_photon_filename, output_dir)
             if path:
@@ -195,7 +215,7 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
 
     state.dropped.item()
     time_ms = elapsed_ms()
-    imgs = finalize(state, cfg, iters, job)
+    imgs = finalize(state, cfg, iters, job, gamma=display_gamma)
     for name, fname in (("combined", p.combined_filename),
                         ("weighted_vpl", p.weighted_vpl_filename),
                         ("weighted_photon", p.weighted_photon_filename)):
@@ -203,15 +223,19 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
         if path:
             im.save(path, imgs[name])
     _write_stat(p, time_ms, iters, output_dir)
+    if checkpoint_path and checkpoint_every:
+        save_checkpoint(checkpoint_path, state, iters, sched)
     return RunResult(images=imgs, num_iterations=iters, time_ms=time_ms,
                      stats={"dropped_splat_pairs": int(state.dropped)})
 
 
 def finalize(state: FrameState, cfg: PhotonFamConfig, iters: int,
-             job: RenderJob) -> dict:
+             job: RenderJob, gamma: bool = False) -> dict:
     """The three-way output split: combined, weighted_vpl (light + VPL),
     weighted_photon, plus the emitter image.  GI terms are zeroed where the
-    emitter is directly visible, as the reference's final pass does."""
+    emitter is directly visible, as the reference's final pass does.
+    gamma: the display transform pow(max(x, 0), 1/2.2) on the three
+    outputs."""
     param = 1.0 if not cfg.accumulate else 1.0 / max(iters, 1)
     light = film.to_image(state.light_img, job.width, job.height)
     vpl = film.to_image(state.vpl_acc, job.width, job.height) * param
@@ -219,18 +243,24 @@ def finalize(state: FrameState, cfg: PhotonFamConfig, iters: int,
     gi_mask = (light[:, :, 0:1] <= 0.0).astype(np.float32)
     vpl = gi_mask * vpl
     photon = gi_mask * photon
-    return {"combined": light + vpl + photon, "weighted_vpl": light + vpl,
-            "weighted_photon": photon, "light": light}
+    out = {"combined": light + vpl + photon, "weighted_vpl": light + vpl,
+           "weighted_photon": photon, "light": light}
+    if gamma:
+        for k in ("combined", "weighted_vpl", "weighted_photon"):
+            out[k] = np.power(np.maximum(out[k], 0.0), 1.0 / 2.2)
+    return out
 
 
 def run_pt(job: RenderJob, output_dir: str | None = None,
-           max_wall_s: float | None = None) -> RunResult:
+           max_wall_s: float | None = None,
+           display_gamma: bool = False) -> RunResult:
     """A path-tracing run following the reference renderer's loop, on the
     device the job's scene lives on.  Each frame draws one camera jitter
     from fold_in(key, 999), traces the G-buffer, and averages
     numSamplePerPixel frames of render_pt_frame with keys fold_in(key, s).
     The first frame is a warm-up outside the clock.  Images: "output"
-    (the composite with the emitter image), "pt" and "light"."""
+    (the composite with the emitter image; with display_gamma, pow 1/2.2
+    of it), "pt" and "light"."""
     p = job.params
     scene = job.scene
     dev = scene.device
@@ -279,7 +309,8 @@ def run_pt(job: RenderJob, output_dir: str | None = None,
     time_ms = (time.perf_counter() - t0) * 1000.0
     param = 1.0 / max(iters, 1) if accumulate else 1.0
     final = film.composite(acc, torch.zeros_like(acc), light,
-                           vpl_scale=param, photon_scale=0.0)
+                           vpl_scale=param, photon_scale=0.0,
+                           gamma=display_gamma)
     imgs = {"output": film.to_image(final, w, h),
             "pt": film.to_image(acc * param, w, h),
             "light": film.to_image(light, w, h)}

@@ -1,6 +1,6 @@
 """Top-level dispatch by technique (counterpart of the JAX package's
 `runtime/render.py`): a config's "pt" block runs the path tracer, its
-"photonfam" block the EVPLP family; "lvcphotonfam" is not ported yet."""
+"photonfam" or "lvcphotonfam" block the EVPLP family."""
 from __future__ import annotations
 
 from evplp_tpu_torch.runtime.loop import RunResult, run_photon_fam, run_pt
@@ -8,18 +8,17 @@ from evplp_tpu_torch.scene.config import RenderJob, load_config
 
 
 def render_job(job: RenderJob, output_dir: str | None = None,
-               max_wall_s: float | None = None) -> RunResult:
-    tech = job.params.technique
-    if tech == "pt":
-        return run_pt(job, output_dir=output_dir, max_wall_s=max_wall_s)
-    if tech == "photonfam":
-        return run_photon_fam(job, output_dir=output_dir,
-                              max_wall_s=max_wall_s)
-    raise NotImplementedError(f"technique {tech!r} is not ported yet")
+               **kwargs) -> RunResult:
+    """Run the job's technique.  kwargs go to run_photon_fam; a pt job
+    takes only max_wall_s and display_gamma of them."""
+    if job.params.technique == "pt":
+        return run_pt(job, output_dir=output_dir,
+                      max_wall_s=kwargs.get("max_wall_s"),
+                      display_gamma=kwargs.get("display_gamma", False))
+    return run_photon_fam(job, output_dir=output_dir, **kwargs)
 
 
-def render_config(path: str, output_dir: str | None = None,
-                  max_wall_s: float | None = None,
-                  device="cuda") -> RunResult:
+def render_config(path: str, output_dir: str | None = None, device="cuda",
+                  **kwargs) -> RunResult:
     return render_job(load_config(path, device=device),
-                      output_dir=output_dir, max_wall_s=max_wall_s)
+                      output_dir=output_dir, **kwargs)

@@ -4,7 +4,8 @@
 The schema is the reference's: resX/resY, scene:[obj...], arealight:{obj,
 intensity}, camera|stablecamera:{origin, direction, up, fovy|fovx}, and one
 technique block among "pt" / "photonfam" / "lvcphotonfam".  OBJ paths are
-relative to the JSON file; unknown keys are ignored; the removed
+relative to the JSON file, texture maps relative to their OBJ (a missing
+texture file leaves the constant); unknown keys are ignored; the removed
 "clampingStart" key errors.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 from evplp_tpu_torch.scene.camera import Camera
 from evplp_tpu_torch.scene.objloader import load_obj
 from evplp_tpu_torch.scene.scene import SceneData, build_scene
+from evplp_tpu_torch.scene.textures import TexturePoolBuilder
 
 TECHNIQUE_KEYS = ("pt", "photonfam", "lvcphotonfam")
 
@@ -130,9 +132,21 @@ def load_config(path: str, device="cuda") -> RenderJob:
     width = int(cfg["resX"])
     height = int(cfg["resY"])
 
-    positions, indices, kds, kss, nss = [], [], [], [], []
+    pool = TexturePoolBuilder()
+    positions, indices, kds, kss, nss, uvs = [], [], [], [], [], []
+    layers = ([], [], [])    # map_Kd, map_Ks, map_Ns layer of each mesh
     for obj_rel in cfg["scene"]:
-        meshes, materials = load_obj(os.path.join(base, obj_rel))
+        obj_path = os.path.join(base, obj_rel)
+        obj_dir = os.path.dirname(obj_path)
+
+        def tex_layer(rel):
+            """The pool layer of a texture map; -1 if none or missing."""
+            if not rel:
+                return -1
+            tex_path = os.path.join(obj_dir, rel)
+            return pool.add_file(tex_path) if os.path.exists(tex_path) else -1
+
+        meshes, materials = load_obj(obj_path)
         for m in meshes:
             mat = materials[m.material]
             positions.append(m.positions)
@@ -140,6 +154,10 @@ def load_config(path: str, device="cuda") -> RenderJob:
             kds.append(mat.kd)
             kss.append(mat.ks)
             nss.append(mat.ns)
+            uvs.append(m.texcoords)
+            for out, rel in zip(layers, (mat.map_kd, mat.map_ks, mat.map_ns)):
+                out.append(tex_layer(rel))
+    tex_data, tex_size = pool.build()
 
     light_cfg = cfg["arealight"]
     lmeshes, _ = load_obj(os.path.join(base, light_cfg["obj"]))
@@ -155,7 +173,10 @@ def load_config(path: str, device="cuda") -> RenderJob:
     camera = Camera.from_json(cam_json, aspect=width / height)
 
     scene = build_scene(positions, indices, kds, kss, nss, lpos, lidx,
-                        intensity, camera, device=device)
+                        intensity, camera, device=device, uv_list=uvs,
+                        kd_layer_list=layers[0], ks_layer_list=layers[1],
+                        ns_layer_list=layers[2], tex_data=tex_data,
+                        tex_size=tex_size)
     tech = next((k for k in TECHNIQUE_KEYS if k in cfg), None)
     if tech is None:
         raise ValueError(f"config must contain one of {TECHNIQUE_KEYS}")

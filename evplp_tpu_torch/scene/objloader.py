@@ -1,10 +1,12 @@
-"""Wavefront OBJ + MTL loading, host side (counterpart of the Python path
-of the JAX package's `scene/objloader.py`).
+"""Wavefront OBJ + MTL loading, host side (counterpart of the JAX
+package's `scene/objloader.py`).
 
-Fan triangulation, one mesh per usemtl run, constant Ns divided by 4 (the
-Assimp shininess fixup the reference bakes in), and a black default
-material in slot 0.  Texture maps are not supported yet: a material that
-names one raises.
+Fan triangulation, one mesh per usemtl run, vertices de-indexed per
+(position, texcoord) pair, constant Ns divided by 4 (the Assimp shininess
+fixup the reference bakes in), map_Kd / map_Ks / map_Ns paths kept in the
+material, and a black default material in slot 0.  The parse runs in the
+native C++ loader (`native/obj_native.py`) unless asked not to; this
+module's Python loop is the fallback and the reference for it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ class ObjMaterial:
     kd: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     ks: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
     ns: float = 0.0
+    map_kd: str | None = None
+    map_ks: str | None = None
+    map_ns: str | None = None
 
 
 @dataclass
@@ -27,7 +32,8 @@ class ObjMesh:
     """One material run of triangles."""
     material: int
     positions: np.ndarray  # (V, 3)
-    indices: np.ndarray    # (T, 3) into positions
+    texcoords: np.ndarray  # (V, 2)
+    indices: np.ndarray    # (T, 3) into positions / texcoords
 
 
 def parse_mtl(path: str) -> dict[str, ObjMaterial]:
@@ -50,19 +56,35 @@ def parse_mtl(path: str) -> dict[str, ObjMaterial]:
                 cur.ks = np.asarray([float(v) for v in parts[1:4]], np.float32)
             elif key == "Ns":
                 cur.ns = float(parts[1]) / 4.0
-            elif key in ("map_Kd", "map_Ks", "map_Ns"):
-                raise NotImplementedError(
-                    f"{path}: material {cur.name!r} uses {key}; texture maps "
-                    "are not supported by evplp_tpu_torch yet")
+            elif key == "map_Kd":
+                cur.map_kd = parts[-1]
+            elif key == "map_Ks":
+                cur.map_ks = parts[-1]
+            elif key == "map_Ns":
+                cur.map_ns = parts[-1]
     return mats
 
 
-def load_obj(path: str):
+def load_obj(path: str, native: str = "auto"):
     """Returns (meshes: list[ObjMesh], materials: list[ObjMaterial]).
     Vertices are de-indexed per (position, texcoord) pair per mesh, as the
-    reference's importer does, so vertex order matches it."""
+    reference's importer does, so vertex order matches it.
+
+    native: "auto" parses with the native loader and falls back to the
+    Python loop if it cannot be built or loaded; "1" requires the native
+    loader (its failure raises); "0" runs the Python loop.  A missing file
+    raises FileNotFoundError either way."""
+    if native != "0":
+        try:
+            from evplp_tpu_torch.native import obj_native
+            return obj_native.load(path)
+        except FileNotFoundError:
+            raise
+        except Exception:
+            if native == "1":
+                raise
     positions: list[list[float]] = []
-    n_tex = 0
+    texcoords: list[list[float]] = []
     materials: list[ObjMaterial] = [ObjMaterial(name="__default__")]
     mat_index: dict[str, int] = {}
     runs: list[tuple[int, list]] = []
@@ -85,7 +107,7 @@ def load_obj(path: str):
             if key == "v":
                 positions.append([float(v) for v in parts[1:4]])
             elif key == "vt":
-                n_tex += 1
+                texcoords.append([float(v) for v in parts[1:3]])
             elif key == "mtllib":
                 mtl_path = os.path.join(base_dir, " ".join(parts[1:]))
                 if os.path.exists(mtl_path):
@@ -104,17 +126,19 @@ def load_obj(path: str):
                     ti = -1
                     if len(comps) > 1 and comps[1]:
                         t = int(comps[1])
-                        ti = t - 1 if t > 0 else n_tex + t
+                        ti = t - 1 if t > 0 else len(texcoords) + t
                     verts.append((vi, ti))
                 for k in range(1, len(verts) - 1):
                     cur_faces.append((verts[0], verts[k], verts[k + 1]))
     flush()
 
     pos_arr = np.asarray(positions, np.float32).reshape(-1, 3)
+    tex_arr = np.asarray(texcoords, np.float32).reshape(-1, 2)
     meshes: list[ObjMesh] = []
     for mat, faces in runs:
         vert_map: dict[tuple[int, int], int] = {}
         mesh_pos: list = []
+        mesh_tex: list = []
         tris = np.zeros((len(faces), 3), np.int32)
         for fi, face in enumerate(faces):
             for ci, vk in enumerate(face):
@@ -123,9 +147,12 @@ def load_obj(path: str):
                     idx = len(mesh_pos)
                     vert_map[vk] = idx
                     mesh_pos.append(pos_arr[vk[0]])
+                    mesh_tex.append(tex_arr[vk[1]] if vk[1] >= 0
+                                    else np.zeros(2, np.float32))
                 tris[fi, ci] = idx
         meshes.append(ObjMesh(
             material=mat,
             positions=np.asarray(mesh_pos, np.float32).reshape(-1, 3),
+            texcoords=np.asarray(mesh_tex, np.float32).reshape(-1, 2),
             indices=tris))
     return meshes, materials

@@ -2,10 +2,9 @@
 three traversal kernels (traverse.cu, packet7.cu, packet.cu) on the
 box_field config's scene (24,010 triangles), and exactly against
 traverse_plain on a 200-box field, on coincident duplicate triangles and
-(packet7.cu, packet.cu) on rays aimed at triangle edges, among them leaf-box
-silhouette grazes, where they equal traverse.cu everywhere and
-traverse_plain but for the few grazes beyond the kernels' shared leaf test
-(scenes made with numpy here), and the VSL sample-loop kernel on a random
+(all three) on rays aimed at triangle edges, among them leaf-box
+silhouette grazes, where they equal traverse_plain on every ray (scenes
+made with numpy here), and the VSL sample-loop kernel on a random
 group of 8 records over 16,384 pixels made with numpy and on a group with
 every lobe case it branches on (tests/torch_vsl_cases.py).  These tests
 need a CUDA card and skip elsewhere; the file imports no JAX, so it runs
@@ -312,16 +311,31 @@ def test_packet_kernels_keep_leaf_box_grazes(box_field_200, kernel):
             torch.full((r,), traverse.BIG, device="cuda"), False)
     want = traverse.traverse_plain(*args)
     got = PACKET_KERNELS[kernel](*args)
-    # every kernel misses the same few grazes beyond the shared leaf test
-    # (ROADMAP queue 3, fault 5) and equals traverse_plain elsewhere
+    # the padded leaf boxes (accel/bvh.py:walk_pad) keep every graze
     _assert_same_hits(got, traverse.traverse_cuda(*args), *args[4:])
-    keep = (got[0] == want[0]) & (got[1] == want[1])
-    assert int((~keep).sum()) <= 8
-    assert int((silhouette_grazes(box_field_200.bvh, o, d, want[0], want[1])
-                & keep).sum()) > 20
-    _assert_same_hits(tuple(x[keep] for x in got),
-                      tuple(x[keep] for x in want), args[4][keep],
-                      args[5][keep], False)
+    assert int(silhouette_grazes(box_field_200.bvh, o, d, want[0],
+                                 want[1]).sum()) > 20
+    _assert_same_hits(got, want, *args[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(TRAVERSALS))
+@pytest.mark.parametrize("seed", [1, 2])
+def test_kernels_keep_every_leaf_box_graze(box_field_200, kernel, seed):
+    """The rays of tests/test_torch_packet_walk.py::
+    test_leaf_box_grazes_keep_their_hits: each kernel equals traverse_plain
+    on every one of them (t, prim, u, v), 0 rays differing."""
+    o, d = (torch.from_numpy(x).cuda() for x in edge_rays(box_field_200,
+                                                          4096, seed))
+    r = o.shape[0]
+    args = (box_field_200.tris, box_field_200.bvh, o, d,
+            torch.full((r,), 1e-4, device="cuda"),
+            torch.full((r,), traverse.BIG, device="cuda"), False)
+    want = traverse.traverse_plain(*args)
+    got = dict(PACKET_KERNELS, traverse=traverse.traverse_cuda)[kernel](*args)
+    differing = (got[0] != want[0]) | (got[1] != want[1])
+    assert int(differing.sum()) == 0
+    _assert_same_hits(got, want, *args[4:])
 
 
 @pytest.mark.cuda
@@ -460,3 +474,24 @@ def test_vsl_wrapper_rejects_bad_inputs(vsl_group):
         call(1, pids.cpu())
     with pytest.raises(ValueError, match="records"):
         call(5, table.repeat(5, 1))
+
+
+@pytest.mark.cuda
+def test_binned_splat_is_deterministic(scene):
+    """The binned photon splat gives the same image bit for bit on every
+    run (its tile sums are ordered), which a resumed progressive run needs
+    to equal one without a break."""
+    from evplp_tpu_torch.core.sampling import iteration_key
+    from evplp_tpu_torch.integrators.gbuffer import trace_gbuffer
+    from evplp_tpu_torch.integrators.light_trace import trace_light_paths
+    from evplp_tpu_torch.integrators.photon_splat import photon_splat_binned
+    sc = scene
+    gbuf = trace_gbuffer(sc, 160, 90, None)
+    pm = trace_light_paths(sc, iteration_key(0, 5, "cuda"), 20_000, 4)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")
+    args = (sc, gbuf, pm, f32(0.05), 4, f32(0.3), f32(1.0 / sc.total_area),
+            1.0 / 20_000, 160, 90)
+    first, dropped = photon_splat_binned(*args)
+    assert int(dropped) == 0 and float(first.abs().max()) > 0.0
+    for _ in range(3):
+        assert torch.equal(photon_splat_binned(*args)[0], first)

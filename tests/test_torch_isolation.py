@@ -1,6 +1,6 @@
-"""The port runs where JAX is absent: with `jax` and `evplp_tpu` blocked in
-sys.modules, every module of evplp_tpu_torch, its CLI and chip_smoke.py
-import.  A CUDA device that does not exist is refused, never replaced by
+"""The port runs where JAX and PIL are absent: with `jax`, `evplp_tpu` and
+`PIL` blocked in sys.modules, every module of evplp_tpu_torch, its CLI and
+chip_smoke.py import.  A CUDA device that does not exist is refused, never replaced by
 the CPU, and chip_smoke.py prints no result without a card or without the
 port beside it."""
 import os
@@ -19,13 +19,15 @@ _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["evplp_tpu"] = None
+sys.modules["PIL"] = None
 import evplp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(evplp_tpu_torch.__path__,
                                                "evplp_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
+loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
+assert not loaded & {"jax", "PIL"}, loaded & {"jax", "PIL"}
 print(" ".join(names))
 """
 
@@ -41,17 +43,37 @@ def test_port_imports_without_jax():
             "evplp_tpu_torch.integrators.pt",
             "evplp_tpu_torch.runtime.render",
             "evplp_tpu_torch.trace.packet",
-            "evplp_tpu_torch.trace.packet7"} <= set(names)
+            "evplp_tpu_torch.trace.packet7",
+            "evplp_tpu_torch.integrators.lvc",
+            "evplp_tpu_torch.runtime.checkpoint",
+            "evplp_tpu_torch.scene.textures",
+            "evplp_tpu_torch.native.obj_native",
+            "evplp_tpu_torch.utils.png"} <= set(names)
 
 
 def test_missing_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.resolve_device("cuda")
-    for config in ("cornell_ours.json", "cornell_pt.json"):
+    for config in ("cornell/cornell_ours.json", "cornell/cornell_pt.json",
+                   "livingroom/livingroom_ours.json",
+                   "livingroom/livingroom_pt.json"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            cli.main([os.path.join(REPO, "configs", "cornell", config)])
+            cli.main([os.path.join(REPO, "configs", config)])
     assert cli.resolve_device("cpu").type == "cpu"
+
+
+def test_missing_cuda_raises_for_lvc(monkeypatch, tmp_path):
+    import json
+    with open(os.path.join(REPO, "configs", "cornell",
+                           "cornell_ours.json")) as f:
+        cfg = json.load(f)
+    cfg["lvcphotonfam"] = cfg.pop("photonfam")
+    path = tmp_path / "lvc.json"
+    path.write_text(json.dumps(cfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main([str(path), "--gamma"])
 
 
 def _run_smoke(script, cwd):

@@ -12,12 +12,15 @@ steps in plain PyTorch.
   leaf and (packet only: packet7 raises on the dense path's scene, which
   has no packed layout) cornell; on the duplicates each hit is the lower
   slot of its pair.
-* On rays aimed at triangle edges of a 200-box field, of which many graze
-  a leaf box's silhouette (its exact slab test rejects it at every t), both
-  equal walk_plain (kernel #1's walk) on every ray, and traverse_plain on
-  every ray but the few (3 of 4,096 here) whose graze exceeds the widened
-  leaf test that the three kernels share (ROADMAP queue 3, fault 5): there
-  they miss the same hit.
+* On rays aimed at triangle edges of a 200-box field (seeds 1 and 2), of
+  which many graze a leaf box's silhouette (its exact slab test rejects it
+  at every t), walk_plain (kernel #1's walk) and both equal traverse_plain
+  on every ray: the walk records' boxes are padded in space
+  (accel/bvh.py:walk_pad), so no graze is lost.
+* On a few rays of other seeds (3 of 8,192 at seeds 17 and 24), all
+  three walks find a hit one or two float32 steps nearer than
+  traverse_plain, which culls it at a near-tie in its DFS order (fault 6);
+  the test names those rays and holds the rest exactly.
 * packet_plain is exact at every SOLO threshold (0: a pure packet; 32, the
   kernel's: packet steps only where every lane wants the node; 33: all
   single-ray walks).
@@ -130,10 +133,10 @@ def test_ties_take_the_least_slot(walk):
     assert lower_of_duplicates(sc.tris, got[1][hit])
 
 
-@pytest.fixture(scope="module")
-def grazes():
+@pytest.fixture(scope="module", params=[1, 2])
+def grazes(request):
     sc = box_field_scene(200, "cpu")
-    o, d = (torch.from_numpy(x) for x in edge_rays(sc, 4096, 1))
+    o, d = (torch.from_numpy(x) for x in edge_rays(sc, 4096, request.param))
     r = o.shape[0]
     args = (sc.tris, sc.bvh, o, d, torch.full((r,), 1e-4),
             torch.full((r,), traverse.BIG), False)
@@ -148,11 +151,41 @@ def test_leaf_box_grazes_keep_their_hits(grazes, walk):
     got = WALKS[walk](*args)
     _assert_same(got, ordered, *args[4:])
     beyond = (ordered[0] != want[0]) | (ordered[1] != want[1])
-    assert int(beyond.sum()) <= 3
-    assert int((graze & ~beyond).sum()) > 20
-    keep = ~beyond
-    _assert_same(tuple(x[keep] for x in got), tuple(x[keep] for x in want),
-                 args[4][keep], args[5][keep], False)
+    assert int(beyond.sum()) == 0
+    assert int(graze.sum()) > 20
+    _assert_same(got, want, *args[4:])
+    _assert_same(ordered, want, *args[4:])
+
+
+# (seed -> rays) of edge_rays(box_field_scene(200), 4096, seed) on which the
+# walks find a hit one or two float32 steps nearer than traverse_plain:
+# Moller-Trumbore places it just before the t_near of an internal box that
+# the skip-pointer walk, in its DFS order, culls at its current t, while
+# the near-first walks test that box first (ROADMAP queue 3, fault 6)
+NEARER_THAN_REFERENCE = {17: [2582, 3388], 24: [1611]}
+
+
+@pytest.mark.parametrize("seed", sorted(NEARER_THAN_REFERENCE))
+def test_walks_keep_hits_the_reference_culls_at_ties(seed):
+    sc = box_field_scene(200, "cpu")
+    o, d = (torch.from_numpy(x) for x in edge_rays(sc, 4096, seed))
+    r = o.shape[0]
+    args = (sc.tris, sc.bvh, o, d, torch.full((r,), 1e-4),
+            torch.full((r,), traverse.BIG), False)
+    want = traverse.traverse_plain(*args)
+    for walk in (traverse.walk_plain, *WALKS.values()):
+        got = walk(*args)
+        differing = (got[0] != want[0]) | (got[1] != want[1])
+        rays = torch.nonzero(differing).squeeze(1)
+        assert rays.tolist() == NEARER_THAN_REFERENCE[seed]
+        assert bool((want[1][rays] >= 0).all() & (got[1][rays] >= 0).all())
+        steps = (want[0][rays].view(torch.int32)
+                 - got[0][rays].view(torch.int32))
+        assert bool(((steps >= 1) & (steps <= 2)).all())
+        keep = ~differing
+        _assert_same(tuple(x[keep] for x in got),
+                     tuple(x[keep] for x in want), args[4][keep],
+                     args[5][keep], False)
 
 
 @pytest.mark.parametrize("solo", [0, 4, 16, 32, 33])

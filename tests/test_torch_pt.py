@@ -12,7 +12,8 @@
   pixels of JIT_FLIPS, where XLA's fused rounding turns one shadow test
   (ROADMAP queue 3).
 * The CLI on a small pt config with --device cpu writes the output PFM and
-  the stat JSON; lvcphotonfam still raises NotImplementedError."""
+  the stat JSON, and with --gamma the display transform of the same
+  image, linear ** (1 / 2.2) at rtol 1e-6."""
 import json
 import os
 
@@ -35,7 +36,6 @@ from evplp_tpu_torch.core.sampling import iteration_key
 from evplp_tpu_torch.integrators import pt
 from evplp_tpu_torch.integrators.gbuffer import trace_gbuffer
 from evplp_tpu_torch.runtime.loop import run_pt
-from evplp_tpu_torch.runtime.render import render_job
 from evplp_tpu_torch.scene.config import load_config
 from evplp_tpu_torch.trace import intersect
 from evplp_tpu_torch.utils.image import load_pfm
@@ -129,6 +129,8 @@ def test_cli_writes_output_and_stats(tmp_path, capsys):
     assert img.max() > 0.0
     assert json.loads((out / "p_stat.json").read_text())[
         "numIterations"] == 1
-    job.params.technique = "lvcphotonfam"
-    with pytest.raises(NotImplementedError, match="lvcphotonfam"):
-        render_job(job)
+    shown = tmp_path / "shown"
+    assert cli.main([path, "--output-dir", str(shown), "--device", "cpu",
+                     "--gamma"]) == 0
+    np.testing.assert_allclose(load_pfm(str(shown / "p.pfm")),
+                               np.power(img, 1.0 / 2.2), rtol=1e-6)

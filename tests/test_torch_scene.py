@@ -4,6 +4,7 @@ and the light CDF must be equal bit for bit (array_equal), so that prim ids
 from the two packages compare 1:1.  Camera rays and light samples are
 float math on the same inputs: rtol 1e-6 (last-ulp differences between
 XLA's and PyTorch's CPU kernels)."""
+import json
 import os
 
 import jax
@@ -35,7 +36,9 @@ def jax_scene_arrays(js) -> dict:
                node_max=js.bvh.node_max, node_skip=js.bvh.node_skip,
                node_first=js.bvh.node_first, node_count=js.bvh.node_count,
                pk_tri_rows=js.bvh.pk_tri_rows, pk_meta=js.bvh.pk_meta,
-               pk_bounds=js.bvh.pk_bounds, pk_prim_map=js.bvh.pk_prim_map)
+               pk_bounds=js.bvh.pk_bounds, pk_prim_map=js.bvh.pk_prim_map,
+               tri_uv0=js.tri_uv0, tri_uv1=js.tri_uv1, tri_uv2=js.tri_uv2,
+               tex_data=js.tex_data, tex_size=js.tex_size)
     out.update({"light_" + k: getattr(js.light, k) for k in
                 ("v0", "v1", "v2", "cdf", "area", "intensity")})
     out = {k: np.asarray(v) for k, v in out.items()}
@@ -102,11 +105,32 @@ def test_load_config_bit_exact(config):
 
 
 def test_obj_texture_map_raises(tmp_path):
+    """map_Kd is parsed into the material; a config whose map_Kd names a
+    PNG the port cannot decode (16-bit) raises ValueError naming it."""
+    import struct
+    import zlib
     (tmp_path / "m.mtl").write_text("newmtl wood\nKd 1 1 1\nmap_Kd wood.png\n")
     (tmp_path / "m.obj").write_text(
         "mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nusemtl wood\nf 1 2 3\n")
-    with pytest.raises(NotImplementedError, match="map_Kd"):
-        load_obj(str(tmp_path / "m.obj"))
+    for native in ("0", "1"):
+        meshes, mats = load_obj(str(tmp_path / "m.obj"), native=native)
+        assert mats[meshes[0].material].map_kd == "wood.png"
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    (tmp_path / "wood.png").write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", 1, 1, 16, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(bytes(7))) + chunk(b"IEND", b""))
+    cfg = dict(resX=4, resY=4, scene=["m.obj"],
+               arealight=dict(obj="m.obj", intensity=[1, 1, 1]),
+               camera=dict(origin=[0, 0, 2], direction=[0, 0, 0],
+                           up=[0, 1, 0], fovy=40.0),
+               photonfam=dict(numLightPaths=4))
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="wood.png"):
+        load_config(str(tmp_path / "c.json"), device="cpu")
 
 
 def test_camera_rays_and_light_samples():

@@ -7,8 +7,11 @@ build_bvh's arrays), box_field_200 built by the port from the same spec,
 coincident duplicate triangles (> 2048, slot order), and a scene whose
 root is a leaf.
 
-* The records are copies: each child's box equals node_min / node_max bit
-  for bit, child references follow the skip pointers (and pk_meta[:, 2]),
+* The records are copies: each internal child's box equals node_min /
+  node_max bit for bit, each leaf child's box is that box padded outwards
+  by walk_pad (2^-16 of the scene's largest coordinate, each bound
+  moved out by at least the pad and at most one float32 step beyond it),
+  child references follow the skip pointers (and pk_meta[:, 2]),
   each leaf's (first, count) is the node arrays' own, and the triangle
   records equal v0 / e1 / e2 bit for bit.
 * The walk from the super-root reaches every slot of every leaf exactly
@@ -28,6 +31,7 @@ import torch
 
 from evplp_tpu.scene import procedural
 from evplp_tpu.trace import intersect as jax_intersect
+from evplp_tpu_torch.accel.bvh import walk_pad
 from evplp_tpu_torch.trace import traverse
 from tests.test_torch_cuda import (_quads, _scene, duplicate_grid_scene,
                                    grid_edge_rays, lower_of_duplicates)
@@ -79,12 +83,26 @@ def test_walk_records_copy_the_node_arrays(scene):
     if bvh.pk_meta.shape[0] == n:
         np.testing.assert_array_equal(kids[1:, 1],
                                       bvh.pk_meta.numpy()[internal, 2])
+    pad = float(walk_pad(nmin, nmax))
+    assert pad == np.float32(2.0 ** -16 * max(np.abs(nmin[0]).max(),
+                                               np.abs(nmax[0]).max()))
     for c in range(2):
         k = kids[:, c]
-        np.testing.assert_array_equal(_bits(nodes[:, 6 * c:6 * c + 3]),
-                                      _bits(nmin[k]))
-        np.testing.assert_array_equal(_bits(nodes[:, 6 * c + 3:6 * c + 6]),
-                                      _bits(nmax[k]))
+        lo, hi = nodes[:, 6 * c:6 * c + 3], nodes[:, 6 * c + 3:6 * c + 6]
+        inner = count[k] == 0
+        np.testing.assert_array_equal(_bits(lo[inner]), _bits(nmin[k][inner]))
+        np.testing.assert_array_equal(_bits(hi[inner]), _bits(nmax[k][inner]))
+        lo64, hi64 = (np.asarray(x, np.float64) for x in (lo, hi))
+        want_lo = nmin[k].astype(np.float64) - pad
+        want_hi = nmax[k].astype(np.float64) + pad
+        assert (lo64[~inner] <= want_lo[~inner]).all()
+        assert (hi64[~inner] >= want_hi[~inner]).all()
+        np.testing.assert_array_equal(
+            np.nextafter(lo[~inner], np.float32(np.inf)) > want_lo[~inner],
+            True)
+        np.testing.assert_array_equal(
+            np.nextafter(hi[~inner], np.float32(-np.inf)) < want_hi[~inner],
+            True)
         ref, cnt = words[:, 12 + c], words[:, 14 + c]
         if c == 1:
             assert (ref[0], cnt[0]) == (-1, 0)

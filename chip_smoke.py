@@ -48,7 +48,19 @@ without a break; --gamma writes linear ** (1/2.2)).  It times each
 traversal kernel on the samples and the LVC casts with the walk records'
 padded leaf boxes and without (walk_pad_cost), and the photon splat with
 its ordered tile sums and with index_add_'s atomics
-(splat_accumulate_cost).  It checks the outputs and the kernels
+(splat_accumulate_cost).  It runs the "ours" config through the CLI with
+--profile (each pass timed over two frames), traces one "ours" and one LVC
+frame under torch.profiler (runtime/profiling.device_trace: the
+operations with the most CUDA time, the kernels launched, the syncs, the
+card's idle share of the frame), and writes a full-size output as PFM,
+HDR and PNG and reads it back (image_io).  It shards box_field "ours",
+LVC, VSL and PT frames over a mesh that names the card four times
+(parallel/shard.py: 180 rows and 75,000 paths a shard), each equal to
+the single-device frame, runs --mesh 1 through the CLI and checks that
+--mesh with more devices than are visible raises, and runs the
+equal-time quality harness (runtime/compare.py) on the glossy configs
+(a PT ground truth, six variants at 2 s each, the report; dense path,
+no traversal kernel).  It checks the outputs and the kernels
 each path launched, times each pass, and renders small references on the
 card (the Cornell goldens, and 64x36 box_field frames against the same
 frames on the CPU).  Each phase prints one line; any failure raises and
@@ -1176,7 +1188,7 @@ def cast_totals(casts: dict, frames: int) -> dict:
 
 def main_path(label, config, iterations, torch, kind, smi, launched=(),
               not_launched=(), nonzero=(), extra=None,
-              sample_casts=False, dense=False) -> dict:
+              sample_casts=False, dense=False, cli_args=()) -> dict:
     """Run `config` through the CLI at full size for `iterations` timed
     frames (plus the warm-up), with every kernel count set to 0 just
     before and read just after.  Checks the images (shape, finite, >= 0,
@@ -1188,7 +1200,8 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
     it launched no traversal kernel instead.  Prints the phase line
     `label`, with the fields `extra(run)` adds, and returns the run.  With
     sample_casts, the run keeps a sample of each cast kind of kernel #1
-    (LaunchTimer, cast_kind)."""
+    (LaunchTimer, cast_kind).  cli_args are added to the CLI's
+    arguments."""
     import numpy as np
     from evplp_tpu_torch import __main__ as cli
     from evplp_tpu_torch.integrators import vsl_kernel
@@ -1210,7 +1223,7 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
         with LaunchTimer(torch, kind=kinds) as timer, \
                 VslLaunchTimer(vsl_kernel, torch) as vsl_timer, \
                 contextlib.redirect_stdout(buf):
-            rc = cli.main([cfg_path, "--output-dir", out_dir])
+            rc = cli.main([cfg_path, "--output-dir", out_dir, *cli_args])
         launches = read_counts()
         casts = timer.summary()
         vsl_calls = vsl_timer.summary()
@@ -1716,6 +1729,371 @@ def splat_accumulate_cost(job, torch) -> dict:
     return out
 
 
+def frame_args(job) -> tuple:
+    """(cfg, zero state, key, (radius, clamp, pdf_mc, VSL radius)) of the
+    first timed frame of run_photon_fam on job, as its loop starts them."""
+    from evplp_tpu_torch.core.sampling import iteration_key
+    from evplp_tpu_torch.integrators import photon_fam as pf
+    from evplp_tpu_torch.runtime import loop
+
+    scene = job.scene
+    sched = loop.initial_schedule(job)
+    cfg = loop._frame_config(job)
+    return (cfg, pf.init_state(cfg, scene.device),
+            iteration_key(0, job.params.rng_offset, scene.device),
+            (sched.radius, sched.clamp, sched.pdf_mc, sched.vsl_radius))
+
+
+# the passes photon_fam_frame names for --profile, and the trace's event
+# categories of work on the card
+PROFILE_PASSES = ("gbuffer", "light_trace", "vpl_gather", "photon_splat")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TOP_OPS = 15
+
+
+def trace_summary(prof, trace_path) -> dict:
+    """From one traced frame (a record_function "frame" span): the TOP_OPS
+    operations with the most self CUDA time (key_averages, the profiler's
+    names), the kernels launched, the runtime calls that wait for the card
+    and the copies, and the share of the frame's wall time in which the
+    card runs no kernel, copy or fill."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    frame = next(e for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") == "frame")
+    lo, hi = frame["ts"], frame["ts"] + frame["dur"]
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events if e.get("cat") in DEVICE_CATS
+                   and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
+
+    def self_ms(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0)) / 1e3
+    top = sorted((a for a in prof.key_averages() if a.key != "frame"),
+                 key=self_ms, reverse=True)[:TOP_OPS]
+    return dict(
+        frame_ms=(hi - lo) / 1e3, device_busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / (hi - lo),
+        kernel_launches=len(kernels),
+        kernel_ms=sum(e["dur"] for e in kernels) / 1e3,
+        mean_kernel_us=(sum(e["dur"] for e in kernels)
+                        / max(len(kernels), 1)),
+        launch_calls=sum("LaunchKernel" in n for n in runtime),
+        syncs=sum("Synchronize" in n for n in runtime),
+        copies=sum(e.get("cat") == "gpu_memcpy" for e in events),
+        top_self_cuda=[dict(name=a.key[:160], calls=a.count,
+                            self_cuda_ms=self_ms(a)) for a in top])
+
+
+def trace_frames(torch) -> dict:
+    """One "ours" and one LVC box_field frame at full size under
+    runtime/profiling.device_trace, each summed up by trace_summary, after
+    a warm-up frame and an untraced frame timed on the host clock: the
+    profiler slows the host's launches, so the card's idle share of an
+    untraced frame is reckoned from the traced frame's busy time and the
+    untraced frame's time as well."""
+    from evplp_tpu_torch.integrators import photon_fam as pf
+    from evplp_tpu_torch.runtime.profiling import device_trace
+    from evplp_tpu_torch.scene.config import load_config
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, config in (("ours", CONFIG), ("lvc", lvc_config(tmp))):
+            t0 = time.perf_counter()
+            job = load_config(config, device="cuda")
+            cfg, state, key, scalars = frame_args(job)
+            pf.photon_fam_frame(job.scene, cfg, state, key, *scalars)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pf.photon_fam_frame(job.scene, cfg, state, key, *scalars)
+            torch.cuda.synchronize()
+            untraced_ms = (time.perf_counter() - t1) * 1000.0
+            log_dir = os.path.join(tmp, f"trace_{label}")
+            with device_trace(log_dir) as prof:
+                with torch.profiler.record_function("frame"):
+                    pf.photon_fam_frame(job.scene, cfg, state, key, *scalars)
+                    torch.cuda.synchronize()
+            out[label] = trace_summary(prof, os.path.join(log_dir,
+                                                          "trace.json"))
+            out[label].update(
+                untraced_frame_ms=untraced_ms,
+                untraced_idle_share=max(0.0, 1.0 - out[label][
+                    "device_busy_ms"] / untraced_ms))
+            phase("device_trace", technique=label,
+                  config=os.path.relpath(config, HERE)
+                  if label == "ours" else "box_field_ours.json as "
+                  "lvcphotonfam", **out[label],
+                  wall_s=time.perf_counter() - t0)
+            if out[label]["kernel_launches"] == 0:
+                raise AssertionError(f"device_trace {label}: the trace "
+                                     "holds no kernel of the card")
+            del job, state
+    return out
+
+
+def rgbe_step(img):
+    """The size of one step of RGBE's 8-bit mantissa at each pixel,
+    2^(e - 8) for the pixel's largest channel m = f 2^e (f in [0.5, 1)),
+    and the pixels RGBE stores as black (m < 1e-32)."""
+    import numpy as np
+    m = img.max(axis=-1, keepdims=True)
+    return np.ldexp(1.0, np.frexp(m)[1] - 8), m < 1e-32
+
+
+# the encoder scales by f 256 / m in float32: a product that rounds just
+# below an integer truncates to the step below, so a channel may lie one
+# step and a few float32 roundings (2^-10 of a step covers them) away
+RGBE_STEPS = 1.0 + 2.0 ** -10
+
+
+def image_io_check(img) -> dict:
+    """A full-size output written through utils/image.save as .pfm, .hdr
+    and .png and read back with load: PFM bit for bit, HDR within
+    RGBE_STEPS steps of the 8-bit mantissa (rgbe_step; pixels RGBE stores
+    as black read back as 0), PNG equal to clip(x * 255 + 0.5) / 255."""
+    import numpy as np
+    from evplp_tpu_torch.utils import image as im
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        back = {}
+        for ext in (".pfm", ".hdr", ".png"):
+            path = os.path.join(tmp, "io", "img" + ext)
+            im.save(path, img)
+            out[ext[1:] + "_bytes"] = os.path.getsize(path)
+            back[ext] = im.load(path)
+    step, black = rgbe_step(img)
+    hdr_err = np.abs(back[".hdr"] - img)
+    hdr_steps = np.where(black, 0.0, hdr_err / step)
+    png_want = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8).astype(
+        np.float32) / 255.0
+    out.update(shape=list(img.shape), image_max=float(img.max()),
+               pfm_equal=bool(np.array_equal(back[".pfm"], img)),
+               hdr_max_abs_err=float(hdr_err.max()),
+               hdr_max_steps=float(hdr_steps.max()),
+               hdr_over_one_step=int((hdr_steps > 1.0).sum()),
+               hdr_within=bool((hdr_steps <= RGBE_STEPS).all() and not (
+                   black & (back[".hdr"] != 0)).any()),
+               png_equal=bool(np.array_equal(back[".png"], png_want)),
+               wall_s=time.perf_counter() - t0)
+    phase("image_io", **out)
+    if not (out["pfm_equal"] and out["hdr_within"] and out["png_equal"]
+            and img.any()):
+        raise AssertionError(f"image_io: {out}")
+    return out
+
+
+SHARDS = 4
+SHARD_RTOL, SHARD_ATOL = 2e-4, 1e-6
+
+
+def _shard_gate(label, got: dict, want: dict) -> dict:
+    """Max abs differences of got against want, raising outside SHARD_RTOL
+    / SHARD_ATOL (tests/test_shard.py's bar)."""
+    import numpy as np
+    diffs = {}
+    for k, w in want.items():
+        g = got[k].cpu().numpy()
+        w = w.cpu().numpy()
+        diffs[k] = float(np.abs(g - w).max())
+        if not np.allclose(g, w, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+            bad = int((~np.isclose(g, w, rtol=SHARD_RTOL,
+                                   atol=SHARD_ATOL)).sum())
+            raise AssertionError(f"shard {label} {k}: {bad} values outside "
+                                 f"rtol {SHARD_RTOL} / atol {SHARD_ATOL}, "
+                                 f"max abs diff {diffs[k]}")
+    return diffs
+
+
+def shard_check(torch) -> dict:
+    """box_field at full size over a mesh that names the card SHARDS times
+    (parallel/shard.py): one sharded and one single-device frame with the
+    same key for "ours", LVC, VSL and PT, each timed after a warm-up
+    frame of its own kind (the caching allocator's first blocks of each
+    shape); the sharded frame must drop no pair and equal the
+    single-device one at SHARD_RTOL / SHARD_ATOL, and launch kernel #1
+    (and #4 for VSL).  Returns the timed sharded frames' kernel
+    launches."""
+    from evplp_tpu_torch.core import rng
+    from evplp_tpu_torch.core.sampling import iteration_key
+    from evplp_tpu_torch.integrators import photon_fam as pf
+    from evplp_tpu_torch.integrators.gbuffer import (light_image,
+                                                     trace_gbuffer)
+    from evplp_tpu_torch.integrators.pt import render_pt_frame
+    from evplp_tpu_torch.parallel.shard import (
+        Mesh, shard_state, sharded_photon_fam_frame, sharded_pt_frame,
+        unshard_state)
+    from evplp_tpu_torch.scene.config import load_config
+
+    mesh = Mesh(["cuda:0"] * SHARDS)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1000.0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = (("ours", CONFIG, ("bvh_traverse",)),
+                ("lvc", lvc_config(tmp), ("bvh_traverse",)),
+                ("vsl", VSL_CONFIG, ("bvh_traverse", "vsl_sample")),
+                ("pt", PT_CONFIG, ("bvh_traverse",)))
+        for label, config, launched in runs:
+            t0 = time.perf_counter()
+            job = load_config(config, device="cuda")
+            scene, p = job.scene, job.params
+            if label == "pt":
+                key = iteration_key(0, p.rng_offset, scene.device)
+                u = rng.uniform(rng.fold_in(key, 999), (2,))
+                jitter = (2.0 * u - 1.0) / torch.tensor(
+                    [job.width, job.height], device=scene.device)
+                k0 = rng.fold_in(key, 0)
+
+                def single():
+                    gbuf = trace_gbuffer(scene, job.width, job.height,
+                                         jitter)
+                    return dict(image=render_pt_frame(
+                        scene, gbuf, k0, p.num_max_bounces),
+                        light=light_image(scene, gbuf))
+
+                def sharded():
+                    img, light = sharded_pt_frame(
+                        scene, mesh, job.width, job.height, k0,
+                        p.num_max_bounces, jitter=jitter)
+                    return dict(image=img, light=light)
+                dropped, paths = 0, 0
+            else:
+                cfg, state, key, scalars = frame_args(job)
+
+                def single():
+                    return pf.photon_fam_frame(scene, cfg, state, key,
+                                               *scalars)
+
+                def sharded():
+                    return unshard_state(sharded_photon_fam_frame(
+                        scene, cfg, mesh, shard_state(state, mesh), key,
+                        *scalars))
+                paths = cfg.num_light_paths // SHARDS
+            single()
+            want, single_ms = timed(single)
+            sharded()
+            zero_counts()
+            got, sharded_ms = timed(sharded)
+            counts = read_counts()
+            if label != "pt":
+                dropped = int(got.dropped)
+                got, want = ({k: getattr(s, k) for k in (
+                    "vpl_acc", "photon_acc", "light_img")}
+                    for s in (got, want))
+            diffs = _shard_gate(label, got, want)
+            phase("shard", technique=label,
+                  config=os.path.relpath(config, HERE) if label != "lvc"
+                  else "box_field_ours.json as lvcphotonfam",
+                  shards=SHARDS, devices=[str(d) for d in mesh.devices],
+                  rows_per_shard=job.height // SHARDS,
+                  paths_per_shard=paths, dropped_splat_pairs=dropped,
+                  max_abs_diff=diffs, single_ms=single_ms,
+                  sharded_ms=sharded_ms, launches=counts,
+                  wall_s=time.perf_counter() - t0)
+            if dropped:
+                raise AssertionError(f"shard {label}: dropped {dropped}")
+            for k in launched:
+                if counts[k] == 0:
+                    raise AssertionError(f"shard {label} never launched {k}:"
+                                         f" {counts}")
+            for k, v in counts.items():
+                launches[k] += v
+            del job, scene, got, want
+    return launches
+
+
+def mesh_cli_check(torch, kind, smi) -> dict:
+    """--mesh through the CLI on the card: one box_field "ours" frame with
+    --mesh 1, and --mesh with one device more than are visible, which must
+    raise."""
+    from evplp_tpu_torch import __main__ as cli
+
+    run = main_path("mesh_cli", CONFIG, 1, torch, kind, smi,
+                    not_launched=("vsl_sample",), cli_args=("--mesh", "1"))
+    n = torch.cuda.device_count() + 1
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([CONFIG, "--mesh", str(n), "--max-wall-s", "0"])
+    except RuntimeError as err:
+        if f"{n} CUDA devices" not in str(err):
+            raise
+        phase("mesh_cli_refuses", mesh=n, error=str(err))
+    else:
+        raise AssertionError(f"--mesh {n} ran on {n - 1} visible devices")
+    return run["launches"]
+
+
+QUALITY_SCENE = "glossy"
+QUALITY_GT_ITERS = 64
+QUALITY_BUDGET_MS = 2000.0
+
+
+def quality_check(torch) -> list:
+    """The equal-time harness (runtime/compare.py) on configs/glossy at
+    1280x720: a PT ground truth of QUALITY_GT_ITERS frames, the six
+    variants at QUALITY_BUDGET_MS each, and the report.  Every row must
+    have a timed frame and finite metrics, every image be finite and
+    >= 0, no pair be dropped, and no traversal kernel launch (glossy has
+    fewer than 2048 triangles: the dense path)."""
+    import numpy as np
+    from evplp_tpu_torch.runtime import compare
+
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as art:
+        common = ["--art-dir", art, "--budget-ms", str(QUALITY_BUDGET_MS),
+                  "--device", "cuda"]
+        zero_counts()
+        with contextlib.redirect_stdout(log):
+            compare.main(common + ["gt", QUALITY_SCENE,
+                                   str(QUALITY_GT_ITERS)])
+            compare.main(common + ["run", QUALITY_SCENE])
+            rows = compare.report((QUALITY_SCENE,), art,
+                                  budget_ms=QUALITY_BUDGET_MS)
+        counts = read_counts()
+        images = {}
+        for name in ("gt",) + compare.VARIANTS:
+            z = np.load(os.path.join(art, f"{QUALITY_SCENE}_{name}.npz"))
+            img = z["img"]
+            images[name] = dict(
+                shape=list(img.shape), mean=float(img.mean()),
+                finite=bool(np.isfinite(img).all()),
+                nonneg=bool((img >= 0).all()),
+                dropped=int(z["dropped"]) if "dropped" in z.files else 0)
+    phase("quality", scene=QUALITY_SCENE, gt_iters=QUALITY_GT_ITERS,
+          budget_ms=QUALITY_BUDGET_MS, rows=rows, images=images,
+          launches=counts, harness_log=log.getvalue().splitlines(),
+          wall_s=time.perf_counter() - t0)
+    if len(rows) != len(compare.VARIANTS):
+        raise AssertionError(f"quality: {len(rows)} rows")
+    for r in rows:
+        if r["iters"] < 1 or not (np.isfinite(r["mse"])
+                                  and np.isfinite(r["rel_mse"])):
+            raise AssertionError(f"quality: row {r}")
+    for name, v in images.items():
+        if not (v["finite"] and v["nonneg"]) or v["dropped"]:
+            raise AssertionError(f"quality: image {name} {v}")
+    for k in TRAVERSALS:
+        if counts[k]:
+            raise AssertionError(f"quality launched {k}: {counts}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1902,11 +2280,38 @@ def main() -> int:
     # ---- 10: checkpoint and resume through the CLI ----
     resume_check(torch)
 
+    # ---- 11: --profile through the CLI, the "ours" and LVC frames under
+    # the profiler, and the image formats on a full-size output ----
+    prun = main_path("profile", CONFIG, 2, torch, kind, smi,
+                     not_launched=("vsl_sample",), cli_args=("--profile",))
+    for k, v in prun["launches"].items():
+        launches[k] += v
+    passes = prun["stats"]["passes"]
+    phase("profile_passes", config=os.path.relpath(CONFIG, HERE),
+          passes=passes, sum_ms_per_frame=sum(
+              v["ms_avg"] for v in passes.values()))
+    if sorted(passes) != sorted(PROFILE_PASSES) or any(
+            v["calls"] != 2 for v in passes.values()):
+        raise AssertionError(f"profile: passes {passes}")
+    trace_frames(torch)
+    image_io_check(prun["imgs"]["combinedFilename"])
+    del prun
+
+    # ---- 12: pixel-row sharding over SHARDS shards of the card, and
+    # --mesh through the CLI ----
+    for k, v in shard_check(torch).items():
+        launches[k] += v
+    for k, v in mesh_cli_check(torch, kind, smi).items():
+        launches[k] += v
+
+    # ---- 13: the equal-time quality harness on glossy ----
+    quality_check(torch)
+
     t0 = time.perf_counter()
     phase("reference_check", max_abs_diff=reference_check(),
           wall_s=time.perf_counter() - t0)
 
-    # ---- 11: kernels line, card line, result ----
+    # ---- 14: kernels line, card line, result ----
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was never launched: {launches}")
     entries["vsl_sample"] = vsl_entry

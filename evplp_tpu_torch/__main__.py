@@ -1,13 +1,16 @@
 """CLI entry: python -m evplp_tpu_torch config.json [--output-dir DIR]
-[--max-wall-s S] [--device cuda|cpu] [--gamma] [--checkpoint PATH
-[--checkpoint-every N]] [--resume PATH]
+[--max-wall-s S] [--device cuda|cpu] [--profile] [--gamma] [--checkpoint
+PATH [--checkpoint-every N]] [--resume PATH] [--mesh N]
 
 Runs a reference-format config on the card: a "pt" block (path tracing), a
 "photonfam" block (EVPLP, or VSL with forceVsl) or an "lvcphotonfam" block
-(the LVC gather), textured scenes included.  --gamma writes the outputs
+(the LVC gather), textured scenes included.  --profile times each pass of
+a photonfam run (printed with the stats); --gamma writes the outputs
 through the display transform pow 1/2.2; --checkpoint, --checkpoint-every
 and --resume save and resume a photonfam run's progressive state (a pt
-config takes only --gamma).  The CPU runs only when asked for with
+config takes only --gamma and --mesh); --mesh N shards the film's rows
+over the first N devices of --device's type (parallel/shard.py; resY and
+numLightPaths must divide by N).  The CPU runs only when asked for with
 --device cpu; without a card the CLI raises.
 """
 from __future__ import annotations
@@ -40,6 +43,8 @@ def main(argv=None):
                     help="hard wall-clock cap regardless of timeLimitMs")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
+    ap.add_argument("--profile", action="store_true",
+                    help="per-pass device timing (printed with the stats)")
     ap.add_argument("--gamma", action="store_true",
                     help="apply the display gamma (pow 1/2.2) to saved "
                          "outputs; the dumps are linear otherwise")
@@ -48,6 +53,11 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--resume", default=None,
                     help="resume from a checkpoint file")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="run pixel-row-sharded over the first N devices "
+                         "of --device's type (light blocks ring-rotate; "
+                         "parallel/shard.py); needs N visible devices and "
+                         "resY %% N == 0")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -57,11 +67,16 @@ def main(argv=None):
     with open(args.config) as f:
         is_pt = "pt" in json.load(f)
     if not is_pt:
+        if args.profile:
+            kwargs["profile"] = True
         if args.checkpoint:
             kwargs.update(checkpoint_path=args.checkpoint,
                           checkpoint_every=args.checkpoint_every)
         if args.resume:
             kwargs["resume_from"] = args.resume
+    if args.mesh:
+        from evplp_tpu_torch.parallel.shard import make_mesh
+        kwargs["mesh"] = make_mesh(args.mesh, dev)
     result = render_config(args.config, output_dir=args.output_dir,
                            device=dev, **kwargs)
     print(json.dumps({"numIterations": result.num_iterations,

@@ -29,11 +29,16 @@ class GBuffer:
 
 
 def trace_gbuffer(scene: SceneData, width: int, height: int,
-                  jitter_ndc=None) -> GBuffer:
-    """Trace the primary rays and gather shading data.  The emitter carries
-    black material, so downstream estimators give zero there."""
+                  jitter_ndc=None, row_start: int = 0,
+                  row_count: int | None = None) -> GBuffer:
+    """Trace the primary rays and gather shading data, for the film or its
+    band of rows [row_start, row_start + row_count) (a shard's rows).  The
+    emitter carries black material, so downstream estimators give zero
+    there."""
     o, d = scene.camera.generate_rays(width, height, jitter_ndc,
-                                      device=scene.device)
+                                      device=scene.device,
+                                      row_start=row_start,
+                                      row_count=row_count)
     hit = intersect_closest(scene.tris, scene.bvh, o, d, t_min=1e-4)
     valid = hit.valid
     prim = torch.clamp_min(hit.prim, 0).long()

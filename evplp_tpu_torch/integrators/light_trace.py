@@ -64,13 +64,16 @@ def zero_photon_map(num_paths: int, num_records: int, device="cuda") -> PhotonMa
 
 
 def trace_light_paths(scene: SceneData, key: torch.Tensor, num_paths: int,
-                      num_records: int) -> PhotonMap:
-    """Trace the light subpaths (num_records >= 2).  Path i draws from
-    fold_in(key, i), then one fold_in per draw site."""
+                      num_records: int, path_offset: int = 0) -> PhotonMap:
+    """Trace the light subpaths (num_records >= 2) of global ids
+    path_offset .. path_offset + num_paths - 1.  Path i draws from
+    fold_in(key, i), then one fold_in per draw site, so any split of the
+    ids into blocks (one a shard) traces the same paths."""
     p = num_paths
     dev = scene.device
     exp = scene.light.intensity[3]
-    ids = torch.arange(p, dtype=torch.int64, device=dev)
+    ids = torch.arange(path_offset, path_offset + p, dtype=torch.int64,
+                       device=dev)
     pkeys = rng.fold_in(key.to(dev), ids)
 
     def pdraw(tag: int, width: int | None = None):

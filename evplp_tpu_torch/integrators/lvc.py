@@ -86,17 +86,19 @@ def lvc_offsets(key: torch.Tensor, n: int, num_paths: int) -> torch.Tensor:
 
 def lvc_gather(scene: SceneData, gbuf: GBuffer, pm: PhotonMap,
                key: torch.Tensor, mis_mode: int, pdf_mc, clamping_value,
-               num_vpl_paths: int) -> torch.Tensor:
+               num_vpl_paths: int, offsets=None) -> torch.Tensor:
     """The frame's LVC image (N, 3), divided by num_vpl_paths: at step
     (i, j) pixel p gathers record j of path (offsets[p] + i) mod
-    numLightPaths, the window starts drawn from key (lvc_offsets).
+    numLightPaths, the window starts drawn from key (lvc_offsets) unless
+    given (a shard passes its rows' slice of the whole film's starts).
     pdf_mc and clamping_value are 0-d float32 tensors."""
     n = gbuf.position.shape[0]
     num_paths, num_records = pm.pos.shape[:2]
     cam = torch.tensor(scene.camera.origin, dtype=torch.float32,
                        device=gbuf.position.device)
     wi10 = mu.normalize(cam[None, :] - gbuf.position)
-    offsets = lvc_offsets(key.to(gbuf.position.device), n, num_paths)
+    if offsets is None:
+        offsets = lvc_offsets(key.to(gbuf.position.device), n, num_paths)
     flat = pm.map(lambda x: x.reshape((-1,) + x.shape[2:]))
     acc = torch.zeros_like(gbuf.position)
     for i in range(num_vpl_paths):

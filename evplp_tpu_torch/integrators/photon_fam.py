@@ -23,6 +23,7 @@ from evplp_tpu_torch.integrators.lvc import lvc_gather
 from evplp_tpu_torch.integrators.photon_splat import photon_splat_binned
 from evplp_tpu_torch.integrators.vpl import vpl_gather
 from evplp_tpu_torch.integrators.vsl import vsl_gather
+from evplp_tpu_torch.runtime.profiling import PassTimer
 from evplp_tpu_torch.scene.scene import SceneData
 
 
@@ -77,8 +78,13 @@ def state_from_arrays(vpl_acc, photon_acc, light_img, dropped,
 def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
                      state: FrameState, key: torch.Tensor, radius: float,
                      clamping_value: float, pdf_mc: float,
-                     vsl_radius: float = 0.0) -> FrameState:
-    """Advance one iteration.  key is the frame's threefry key."""
+                     vsl_radius: float = 0.0,
+                     timer: PassTimer | None = None) -> FrameState:
+    """Advance one iteration.  key is the frame's threefry key; timer
+    (runtime/profiling.PassTimer) times the passes gbuffer, light_trace,
+    vsl_gather / lvc_gather / vpl_gather and photon_splat."""
+    if timer is None:
+        timer = PassTimer(enabled=False)
     dev = scene.device
     key = key.to(dev)
 
@@ -93,33 +99,38 @@ def photon_fam_frame(scene: SceneData, cfg: PhotonFamConfig,
         jitter = (2.0 * u - 1.0) / f32([cfg.width, cfg.height])
 
     n = cfg.width * cfg.height
-    gbuf = (trace_gbuffer(scene, cfg.width, cfg.height, jitter)
+    gbuf = (timer.time_call("gbuffer", trace_gbuffer, scene, cfg.width,
+                            cfg.height, jitter)
             if cfg.do_deferred else zero_gbuffer(n, dev))
-    pm = (trace_light_paths(scene, rng.fold_in(key, 1), cfg.num_light_paths,
-                            cfg.num_records)
+    pm = (timer.time_call("light_trace", trace_light_paths, scene,
+                          rng.fold_in(key, 1), cfg.num_light_paths,
+                          cfg.num_records)
           if cfg.do_light_tracing
           else zero_photon_map(cfg.num_light_paths, cfg.num_records, dev))
 
     vpl_acc = state.vpl_acc
     if cfg.do_vpl and cfg.num_vpl_light_paths > 0:
         if cfg.force_vsl:
-            img = vsl_gather(scene, gbuf, pm, rng.fold_in(key, 2), vsl_radius,
-                             cfg.num_vpl_light_paths)
+            img = timer.time_call("vsl_gather", vsl_gather, scene, gbuf, pm,
+                                  rng.fold_in(key, 2), vsl_radius,
+                                  cfg.num_vpl_light_paths)
         elif cfg.lvc:
-            img = lvc_gather(scene, gbuf, pm, rng.fold_in(key, 3),
-                             cfg.mis_mode, pdf_mc, clamping_value,
-                             cfg.num_vpl_light_paths)
+            img = timer.time_call("lvc_gather", lvc_gather, scene, gbuf, pm,
+                                  rng.fold_in(key, 3), cfg.mis_mode, pdf_mc,
+                                  clamping_value, cfg.num_vpl_light_paths)
         else:
-            img = vpl_gather(scene, gbuf, pm, cfg.mis_mode, pdf_mc,
-                             clamping_value, cfg.num_vpl_light_paths)
+            img = timer.time_call("vpl_gather", vpl_gather, scene, gbuf, pm,
+                                  cfg.mis_mode, pdf_mc, clamping_value,
+                                  cfg.num_vpl_light_paths)
         vpl_acc = vpl_acc + img if cfg.accumulate else img
 
     photon_acc = state.photon_acc
     dropped = state.dropped
     if cfg.do_photon:
-        img, d = photon_splat_binned(
-            scene, gbuf, pm, radius, cfg.mis_mode, pdf_mc, clamping_value,
-            1.0 / cfg.num_light_paths, cfg.width, cfg.height, jitter)
+        img, d = timer.time_call(
+            "photon_splat", photon_splat_binned, scene, gbuf, pm, radius,
+            cfg.mis_mode, pdf_mc, clamping_value, 1.0 / cfg.num_light_paths,
+            cfg.width, cfg.height, jitter)
         photon_acc = photon_acc + img if cfg.accumulate else img
         dropped = dropped + d
 

@@ -171,20 +171,27 @@ def accumulate_tiles(acc: torch.Tensor, tiles: torch.Tensor,
 def photon_splat_binned(scene: SceneData, gbuf: GBuffer, pm: PhotonMap,
                         radius, mis_mode: int, pdf_mc, clamping_value,
                         inv_num_light_paths, width: int, height: int,
-                        jitter_ndc=None, tile: int = 16):
+                        jitter_ndc=None, tile: int = 16, row_offset=None,
+                        full_height: int | None = None):
     """Tile-binned splat of the frame.  Returns (image (N, 3), dropped),
     where dropped counts pairs left unevaluated (always 0).
 
     A photon's footprint is the screen box of half-size radius/z + 1 pixel
     around its projection; photons behind the camera or off screen are
-    skipped, as in the JAX package's tiled splat."""
+    skipped, as in the JAX package's tiled splat.  With row_offset, gbuf
+    holds the rows [row_offset, row_offset + height) of a full_height-tall
+    film (a shard's rows): photons project to the full film and are binned
+    into these rows."""
     dev = gbuf.position.device
     ph = _photon_major(pm, mis_mode, pdf_mc)
     m = ph["pos"].shape[0]
     txn, tyn = -(-width // tile), -(-height // tile)
 
-    px, py, z, in_front, sx, sy = _project(scene, ph["pos"], width, height,
-                                           jitter_ndc)
+    px, py, z, in_front, sx, sy = _project(
+        scene, ph["pos"], width, height if full_height is None
+        else full_height, jitter_ndc)
+    if row_offset is not None:
+        py = py - row_offset
     r_px_x = radius / z * sx + 1.0
     r_px_y = radius / z * sy + 1.0
     tx0 = torch.floor((px - r_px_x) / tile).to(torch.int64)

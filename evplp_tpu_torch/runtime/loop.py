@@ -1,7 +1,7 @@
 """Headless frame loops: stop conditions, progressive schedule, dumps,
-stats, checkpoints and the display gamma (counterpart of `run_photon_fam`
-and `run_pt` in the JAX package's `runtime/loop.py`, without profiling or
-multi-device runs).
+stats, checkpoints, per-pass profiling, multi-device runs and the display
+gamma (counterpart of `run_photon_fam` and `run_pt` in the JAX package's
+`runtime/loop.py`).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from evplp_tpu_torch.integrators.photon_fam import (
 from evplp_tpu_torch.integrators.pt import render_pt_frame
 from evplp_tpu_torch.runtime import film
 from evplp_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+from evplp_tpu_torch.runtime.profiling import PassTimer
 from evplp_tpu_torch.scene.config import RenderJob
 from evplp_tpu_torch.utils import image as im
 
@@ -115,6 +116,40 @@ class BudgetPacer:
         return False
 
 
+def light_path_suggestion(params, frame_ms: float) -> str | None:
+    """The log line suggesting light-path counts that would make a frame
+    take targetRenderingTime ms, given the measured frame_ms (None when
+    no target is set)."""
+    if params.target_rendering_time <= 0 or frame_ms <= 0:
+        return None
+    factor = params.target_rendering_time / frame_ms
+    if params.num_vpl_light_paths:
+        new_vpl = int(params.num_vpl_light_paths * factor)
+        ratio = params.num_light_paths // max(params.num_vpl_light_paths, 1)
+        return (f"change number of samples: {factor:.3f} | "
+                f"Nb light paths: {new_vpl * ratio} | "
+                f"Nb VPL paths: {new_vpl}")
+    return f"Nb light paths: {int(params.num_light_paths * factor)}"
+
+
+def initial_schedule(job: RenderJob) -> ProgressiveSchedule:
+    """The schedule a photonfam run starts from: photon radius
+    radiusPercentage of the bounding radius (at least 1e-6), clamping
+    value clampingCoeff or 1 / total area, VSL radius
+    vslRadiusPercentage of the bounding radius (at least 0.008) with
+    forceVsl, else 0."""
+    p, scene = job.params, job.scene
+    vsl_radius0 = 0.0
+    if p.force_vsl:
+        vsl_radius0 = max(scene.bounding_radius * p.vsl_radius_percentage,
+                          0.008)
+    return ProgressiveSchedule(
+        max(scene.bounding_radius * p.radius_percentage, 1e-6),
+        1.0 / scene.total_area if p.clamping_coeff is None
+        else p.clamping_coeff, p.alpha_progressive, p.num_vpl_light_paths,
+        p.num_light_paths, vsl_radius0)
+
+
 def _frame_config(job: RenderJob) -> PhotonFamConfig:
     p = job.params
     return PhotonFamConfig(
@@ -140,6 +175,7 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
                    checkpoint_path: str | None = None,
                    checkpoint_every: int | None = None,
                    resume_from: str | None = None,
+                   profile: bool | None = None, mesh=None,
                    display_gamma: bool = False) -> RunResult:
     """A photonfam / lvcphotonfam run following the reference renderer's
     loop, on the device the job's scene lives on.  The first frame is a
@@ -149,34 +185,41 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
     checkpoint_path / checkpoint_every: write the progressive state there
     every that many frames and at the end (runtime/checkpoint.py);
     resume_from: start from such a checkpoint (either package's).
+    profile: per-pass timing of the timed frames (runtime/profiling.py)
+    into RunResult.stats["passes"] (None: the EVPLP_PROFILE variable).
+    mesh: a parallel/shard.Mesh; every frame, the warm-up included, runs
+    pixel-row-sharded over it (the passes are then not timed).
     display_gamma: pow 1/2.2 on the saved outputs (the dumps are linear
     otherwise)."""
     p = job.params
     scene = job.scene
     dev = scene.device
-    radius0 = max(scene.bounding_radius * p.radius_percentage, 1e-6)
-    clamp0 = (1.0 / scene.total_area if p.clamping_coeff is None
-              else p.clamping_coeff)
-    vsl_radius0 = 0.0
-    if p.force_vsl:
-        vsl_radius0 = max(scene.bounding_radius * p.vsl_radius_percentage,
-                          0.008)
-    sched = ProgressiveSchedule(radius0, clamp0, p.alpha_progressive,
-                                p.num_vpl_light_paths, p.num_light_paths,
-                                vsl_radius0)
+    sched = initial_schedule(job)
     cfg = _frame_config(job)
+    timer = PassTimer(enabled=profile)
     state = init_state(cfg, dev)
     iters = 0
     if resume_from:
         state, iters, fields = load_checkpoint(resume_from, dev)
         for k in ("radius", "clamp", "clamp_start", "vsl_radius", "pdf_mc"):
             setattr(sched, k, fields[k])
+    if mesh is not None:
+        from evplp_tpu_torch.parallel.shard import (
+            shard_state, sharded_photon_fam_frame, unshard_state)
+        state = shard_state(state, mesh)
 
-    def frame(st, iteration):
-        return photon_fam_frame(scene, cfg, st,
-                                iteration_key(0, iteration, dev),
-                                sched.radius, sched.clamp, sched.pdf_mc,
-                                sched.vsl_radius)
+    def frame(st, iteration, frame_timer=None):
+        key = iteration_key(0, iteration, dev)
+        if mesh is not None:
+            return sharded_photon_fam_frame(
+                scene, cfg, mesh, st, key, sched.radius, sched.clamp,
+                sched.pdf_mc, sched.vsl_radius)
+        return photon_fam_frame(scene, cfg, st, key, sched.radius,
+                                sched.clamp, sched.pdf_mc, sched.vsl_radius,
+                                timer=frame_timer)
+
+    def whole(st):
+        return st if mesh is None else unshard_state(st)
 
     frame(state, p.rng_offset).dropped.item()
     t0 = time.perf_counter()
@@ -187,7 +230,7 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
         return (time.perf_counter() - t0) * 1000.0
 
     while iters != p.num_max_iteration:
-        state = frame(state, iters + p.rng_offset)
+        state = frame(state, iters + p.rng_offset, timer)
         iters += 1
         if iters % progress_every == 0:
             state.dropped.item()
@@ -197,17 +240,20 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
             print(f"numIter: {iters} | radius: {sched.radius:.6g} | "
                   f"clamping: {sched.clamp:.6g} | time: {now:.1f}ms "
                   f"| {frame_ms:.1f}ms/frame")
+            suggestion = light_path_suggestion(p, frame_ms)
+            if suggestion:
+                print(suggestion)
         if p.do_progressive:
             sched.update(iters)
         if checkpoint_path and checkpoint_every and \
                 iters % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, state, iters, sched)
+            save_checkpoint(checkpoint_path, whole(state), iters, sched)
         if p.write_every_frame:
             path = _out_path(p.weighted_photon_filename, output_dir)
             if path:
                 stem, ext = os.path.splitext(path)
                 im.save(f"{stem}_{iters}{ext}",
-                        finalize(state, cfg, iters, job)["combined"])
+                        finalize(whole(state), cfg, iters, job)["combined"])
         if pacer.should_stop(iters, state.dropped):
             break
         if max_wall_s is not None and elapsed_ms() >= max_wall_s * 1000.0:
@@ -215,6 +261,7 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
 
     state.dropped.item()
     time_ms = elapsed_ms()
+    state = whole(state)
     imgs = finalize(state, cfg, iters, job, gamma=display_gamma)
     for name, fname in (("combined", p.combined_filename),
                         ("weighted_vpl", p.weighted_vpl_filename),
@@ -225,8 +272,11 @@ def run_photon_fam(job: RenderJob, output_dir: str | None = None,
     _write_stat(p, time_ms, iters, output_dir)
     if checkpoint_path and checkpoint_every:
         save_checkpoint(checkpoint_path, state, iters, sched)
+    stats = {"dropped_splat_pairs": int(state.dropped)}
+    if timer.enabled:
+        stats["passes"] = timer.report()
     return RunResult(images=imgs, num_iterations=iters, time_ms=time_ms,
-                     stats={"dropped_splat_pairs": int(state.dropped)})
+                     stats=stats)
 
 
 def finalize(state: FrameState, cfg: PhotonFamConfig, iters: int,
@@ -253,14 +303,16 @@ def finalize(state: FrameState, cfg: PhotonFamConfig, iters: int,
 
 def run_pt(job: RenderJob, output_dir: str | None = None,
            max_wall_s: float | None = None,
-           display_gamma: bool = False) -> RunResult:
+           display_gamma: bool = False, mesh=None) -> RunResult:
     """A path-tracing run following the reference renderer's loop, on the
     device the job's scene lives on.  Each frame draws one camera jitter
     from fold_in(key, 999), traces the G-buffer, and averages
     numSamplePerPixel frames of render_pt_frame with keys fold_in(key, s).
-    The first frame is a warm-up outside the clock.  Images: "output"
-    (the composite with the emitter image; with display_gamma, pow 1/2.2
-    of it), "pt" and "light"."""
+    The first frame is a warm-up outside the clock.  mesh: a
+    parallel/shard.Mesh; every frame's pixel rows are then sharded over it
+    (sharded_pt_frame), the accumulation on its first device.  Images:
+    "output" (the composite with the emitter image; with display_gamma,
+    pow 1/2.2 of it), "pt" and "light"."""
     p = job.params
     scene = job.scene
     dev = scene.device
@@ -268,20 +320,32 @@ def run_pt(job: RenderJob, output_dir: str | None = None,
     n = w * h
     accumulate = p.frame_mode == "accumulate"
 
+    if mesh is not None:
+        from evplp_tpu_torch.parallel.shard import sharded_pt_frame
+        dev = mesh.devices[0]
+
     def frame(acc, key):
         jitter = None
         if p.use_jitter:
             u = rng.uniform(rng.fold_in(key, 999), (2,))
             jitter = (2.0 * u - 1.0) / torch.tensor(
                 [w, h], dtype=torch.float32, device=dev)
-        gbuf = trace_gbuffer(scene, w, h, jitter)
         result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        for s in range(p.num_sample_per_pixel):
-            result += render_pt_frame(scene, gbuf, rng.fold_in(key, s),
-                                      p.num_max_bounces)
+        if mesh is not None:
+            for s in range(p.num_sample_per_pixel):
+                img, light = sharded_pt_frame(
+                    scene, mesh, w, h, rng.fold_in(key, s),
+                    p.num_max_bounces, use_jitter=p.use_jitter,
+                    jitter=jitter)
+                result += img
+        else:
+            gbuf = trace_gbuffer(scene, w, h, jitter)
+            for s in range(p.num_sample_per_pixel):
+                result += render_pt_frame(scene, gbuf, rng.fold_in(key, s),
+                                          p.num_max_bounces)
+            light = light_image(scene, gbuf)
         result /= p.num_sample_per_pixel
-        return (acc + result if accumulate else result), light_image(scene,
-                                                                     gbuf)
+        return (acc + result if accumulate else result), light
 
     acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     light = torch.zeros_like(acc)

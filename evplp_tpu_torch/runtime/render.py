@@ -10,11 +10,12 @@ from evplp_tpu_torch.scene.config import RenderJob, load_config
 def render_job(job: RenderJob, output_dir: str | None = None,
                **kwargs) -> RunResult:
     """Run the job's technique.  kwargs go to run_photon_fam; a pt job
-    takes only max_wall_s and display_gamma of them."""
+    takes only max_wall_s, display_gamma and mesh of them."""
     if job.params.technique == "pt":
         return run_pt(job, output_dir=output_dir,
                       max_wall_s=kwargs.get("max_wall_s"),
-                      display_gamma=kwargs.get("display_gamma", False))
+                      display_gamma=kwargs.get("display_gamma", False),
+                      mesh=kwargs.get("mesh"))
     return run_photon_fam(job, output_dir=output_dir, **kwargs)
 
 

@@ -46,16 +46,21 @@ class Camera:
         return origin, fwd, right, upv
 
     def generate_rays(self, width: int, height: int, jitter_ndc=None,
-                      device="cuda"):
+                      device="cuda", row_start: int = 0,
+                      row_count: int | None = None):
         """Primary rays through pixel centres, shifted by the optional (2,)
-        NDC jitter.  Returns (origins (H*W, 3), directions (H*W, 3))."""
+        NDC jitter, for the film or its band of rows [row_start,
+        row_start + row_count).  Returns (origins (R*W, 3), directions
+        (R*W, 3)), R = row_count (default height)."""
         origin, fwd, right, upv = self.basis(device)
         tan_half_fovy = math.tan(self.fovy * 0.5)
         tan_half_fovx = tan_half_fovy * self.aspect
         f32 = dict(dtype=torch.float32, device=device)
         xs = (torch.arange(width, **f32) + 0.5) / width * 2.0 - 1.0
-        ys = 1.0 - (torch.arange(height, **f32) + 0.5) / height * 2.0
-        ndc_x = xs.repeat(height)
+        rows = height if row_count is None else row_count
+        ys = 1.0 - (torch.arange(row_start, row_start + rows, **f32)
+                    + 0.5) / height * 2.0
+        ndc_x = xs.repeat(rows)
         ndc_y = ys.repeat_interleave(width)
         if jitter_ndc is not None:
             ndc_x = ndc_x - jitter_ndc[0]

@@ -64,6 +64,7 @@ class TechniqueParams:
     combined_filename: str = ""
     weighted_photon_filename: str = ""
     weighted_vpl_filename: str = ""
+    target_rendering_time: float = -1.0     # ms; > 0 prints a suggestion
     run_passes: dict = field(default_factory=lambda: {
         "deferredShading": True, "lightTracing": True, "vplSplat": True,
         "photonSplat": True, "lightRender": True, "finalize": True,
@@ -108,6 +109,7 @@ def parse_technique(tech: str, j: dict) -> TechniqueParams:
         p.clamping_coeff = float(j["clampingCoeff"])
     p.do_progressive = bool(j.get("DoProgressive", False))
     p.alpha_progressive = float(j.get("AlphaProgressive", 0.7))
+    p.target_rendering_time = float(j.get("targetRenderingTime", -1.0))
     p.combined_filename = str(j.get("combinedFilename", ""))
     p.weighted_photon_filename = str(j.get("weightedPhotonFilename", ""))
     p.weighted_vpl_filename = str(j.get("weightedVplFilename", ""))

@@ -1,6 +1,7 @@
-"""PNG decoding with the standard library (zlib), for the texture pool.
+"""PNG reading and writing with the standard library (zlib), for the
+texture pool, the exported scenes and the image IO.
 
-Reads 8-bit, non-interlaced PNGs of colour types 0 (grey), 2 (RGB),
+Writes 8-bit RGB with filter 0 on every row.  Reads 8-bit, non-interlaced PNGs of colour types 0 (grey), 2 (RGB),
 3 (palette), 4 (grey + alpha) and 6 (RGBA), undoes the five row filters
 (None, Sub, Up, Average, Paeth) and returns RGB uint8 with any alpha
 dropped, as `PIL.Image.open(path).convert("RGB")` gives it.  Any other bit
@@ -115,3 +116,25 @@ def read_png_rgb(path: str) -> np.ndarray:
     if colour in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def write_png_rgb(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG, row 0 at the
+    top, every row with filter 0 (None)."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"{path}: PNG writing needs (H, W, 3) uint8, got "
+                         f"{rgb.dtype} {rgb.shape}")
+    height, width = rgb.shape[:2]
+    rows = np.zeros((height, 1 + 3 * width), np.uint8)
+    rows[:, 1:] = rgb.reshape(height, 3 * width)
+    header = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(SIGNATURE + _chunk(b"IHDR", header)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))

@@ -21,10 +21,10 @@ import pytest
 
 from evplp_tpu.runtime.loop import run_photon_fam as jax_run_photon_fam
 from evplp_tpu.scene.config import load_config as jax_load_config
-from evplp_tpu.scene.export import write_cornell_config
 from evplp_tpu_torch.runtime.checkpoint import FORMAT_VERSION, load_checkpoint
 from evplp_tpu_torch.runtime.loop import run_photon_fam
 from evplp_tpu_torch.scene.config import load_config
+from evplp_tpu_torch.scene.export import write_cornell_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK = dict(rngOffset=3, timeLimitMs=-1.0, frameMode="accumulate",

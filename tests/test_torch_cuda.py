@@ -3,8 +3,9 @@ three traversal kernels (traverse.cu, packet7.cu, packet.cu) on the
 box_field config's scene (24,010 triangles), and exactly against
 traverse_plain on a 200-box field, on coincident duplicate triangles and
 (all three) on rays aimed at triangle edges, among them leaf-box
-silhouette grazes, where they equal traverse_plain on every ray (scenes
-made with numpy here), and the VSL sample-loop kernel on a random
+silhouette grazes, where they equal traverse_plain on every ray (the
+200-box field from the port's scene/procedural.py, the others made with
+numpy here), and the VSL sample-loop kernel on a random
 group of 8 records over 16,384 pixels made with numpy and on a group with
 every lobe case it branches on (tests/torch_vsl_cases.py).  These tests
 need a CUDA card and skip elsewhere; the file imports no JAX, so it runs
@@ -29,6 +30,7 @@ import torch
 
 from evplp_tpu_torch.core import mathutil as mu
 from evplp_tpu_torch.integrators import vsl_kernel
+from evplp_tpu_torch.scene import procedural
 from evplp_tpu_torch.scene.camera import Camera
 from evplp_tpu_torch.scene.config import load_config
 from evplp_tpu_torch.scene.scene import build_scene
@@ -85,28 +87,16 @@ def _scene(meshes, device):
 
 
 def box_field_scene(num_boxes, device, seed=0):
-    """num_boxes random axis-aligned boxes (12 triangles each, half-sizes
-    0.02-0.08) in a 4 x 2 x 4 room, made with numpy as the JAX package's
-    procedural.box_field makes its field (200 boxes: 2,412 triangles)."""
-    rs = np.random.default_rng(seed)
-    room = _quads([
-        ([0, 0, 0], [0, 0, 4], [4, 0, 4], [4, 0, 0]),
-        ([0, 2, 0], [4, 2, 0], [4, 2, 4], [0, 2, 4]),
-        ([0, 0, 0], [4, 0, 0], [4, 2, 0], [0, 2, 0]),
-        ([0, 0, 0], [0, 2, 0], [0, 2, 4], [0, 0, 4]),
-        ([4, 0, 0], [4, 0, 4], [4, 2, 4], [4, 2, 0])])
-    quads = []
-    for c, h in zip(rs.uniform([0.2, 0.0, 0.2], [3.8, 1.0, 3.8],
-                               (num_boxes, 3)),
-                    rs.uniform(0.02, 0.08, (num_boxes, 3))):
-        (x0, y0, z0), (x1, y1, z1) = c - h, c + h
-        quads += [([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1]),
-                  ([x0, y1, z0], [x0, y1, z1], [x1, y1, z1], [x1, y1, z0]),
-                  ([x0, y0, z0], [x0, y1, z0], [x1, y1, z0], [x1, y0, z0]),
-                  ([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]),
-                  ([x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0]),
-                  ([x1, y0, z0], [x1, y1, z0], [x1, y1, z1], [x1, y0, z1])]
-    return _scene([room, _quads(quads)], device)
+    """The room and boxes of procedural.box_field_spec(num_boxes, seed)
+    (200 boxes: 2,410 triangles), grey, with this file's light quad at
+    y = 2.5 and camera (_scene).  Its arrays equal, bit for bit, those of
+    the numpy field this function built before it took the spec's
+    geometry.  procedural.box_field itself differs in its light quad
+    (y = 1.99), materials and camera, which move the BVH; the rays that
+    tests/test_torch_packet_walk.py names for fault 6 belong to this
+    BVH."""
+    spec = procedural.box_field_spec(num_boxes, seed)
+    return _scene([(g[1], g[2]) for g in spec["groups"]], device)
 
 
 def duplicate_grid_scene(device, n=24):

@@ -31,12 +31,12 @@ from evplp_tpu.integrators import photon_fam as jpf
 from evplp_tpu.runtime.loop import run_photon_fam as jax_run_photon_fam
 from evplp_tpu.scene import procedural
 from evplp_tpu.scene.config import load_config as jax_load_config
-from evplp_tpu.scene.export import write_cornell_config
 from evplp_tpu_torch import __main__ as cli
 from evplp_tpu_torch.core.sampling import iteration_key
 from evplp_tpu_torch.integrators import photon_fam
 from evplp_tpu_torch.runtime.loop import run_photon_fam
 from evplp_tpu_torch.scene.config import load_config
+from evplp_tpu_torch.scene.export import write_cornell_config
 from evplp_tpu_torch.utils.image import load_pfm
 from tests.test_torch_scene import torch_scene_of
 

@@ -29,12 +29,12 @@ from evplp_tpu.integrators import gbuffer as jgb
 from evplp_tpu.integrators import light_trace as jlt
 from evplp_tpu.integrators import lvc as jlvc
 from evplp_tpu.scene import procedural
-from evplp_tpu.scene.export import write_cornell_config
 from evplp_tpu_torch import __main__ as cli
 from evplp_tpu_torch.core import rng
 from evplp_tpu_torch.core.sampling import iteration_key
 from evplp_tpu_torch.integrators import gbuffer, light_trace, lvc
 from evplp_tpu_torch.runtime.render import render_config
+from evplp_tpu_torch.scene.export import write_cornell_config
 from evplp_tpu_torch.utils.image import load_pfm
 from tests.test_torch_scene import torch_scene_of
 

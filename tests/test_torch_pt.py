@@ -29,7 +29,6 @@ from evplp_tpu.integrators.gbuffer import trace_gbuffer as jax_trace_gbuffer
 from evplp_tpu.runtime.loop import run_pt as jax_run_pt
 from evplp_tpu.scene import procedural
 from evplp_tpu.scene.config import load_config as jax_load_config
-from evplp_tpu.scene.export import write_cornell_config
 from evplp_tpu_torch import __main__ as cli
 from evplp_tpu_torch.core import rng
 from evplp_tpu_torch.core.sampling import iteration_key
@@ -37,6 +36,7 @@ from evplp_tpu_torch.integrators import pt
 from evplp_tpu_torch.integrators.gbuffer import trace_gbuffer
 from evplp_tpu_torch.runtime.loop import run_pt
 from evplp_tpu_torch.scene.config import load_config
+from evplp_tpu_torch.scene.export import write_cornell_config
 from evplp_tpu_torch.trace import intersect
 from evplp_tpu_torch.utils.image import load_pfm
 from tests.test_torch_scene import torch_scene_of

@@ -60,7 +60,18 @@ the single-device frame, runs --mesh 1 through the CLI and checks that
 --mesh with more devices than are visible raises, and runs the
 equal-time quality harness (runtime/compare.py) on the glossy configs
 (a PT ground truth, six variants at 2 s each, the report; dense path,
-no traversal kernel).  It checks the outputs and the kernels
+no traversal kernel).  Its big_scene phase runs the large-scene tier:
+box_field_big (25,000 boxes, about 300,000 triangles) and box_field_huge
+(200,000 boxes, about 2.4M), whose configs scene/export.py writes at
+1280x720 into a temporary directory; past 280,000 triangles the scene is
+built with 42-triangle leaves and fused node rows, on which every cast
+runs traverse.cu whatever PACKET_IMPL says (packet7.cu and packet.cu must
+not launch).  It prints each scene's build (triangles, slots, nodes,
+depth, walk-record bytes, the export, load and BVH-build seconds, device
+memory), holds traverse.cu to traverse_plain on the three ray samples
+and on the sampled casts of the "ours" and LVC runs, and runs "ours",
+PT, VSL, PM, VPL and LVC on box_field_big and "ours" on box_field_huge
+through the CLI.  It checks the outputs and the kernels
 each path launched, times each pass, and renders small references on the
 card (the Cornell goldens, and 64x36 box_field frames against the same
 frames on the CPU).  Each phase prints one line; any failure raises and
@@ -77,6 +88,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -123,8 +135,17 @@ PEAK_F32_PER_S = 67e12
 SLAB_OPS = 25
 TRI_OPS = 53
 WALK_STEP_OPS = 2 * SLAB_OPS + 10
-# bytes a ray moves: o, d, t_min, t_max in; t, prim, u, v out
+# bytes a ray moves: o, d, t_min, t_max in; t, prim, u, v out; a lane
+# that is not traced (t_max <= t_min) needs only t_min, t_max in
 RAY_BYTES = 48
+DEAD_RAY_BYTES = 24
+# bytes of one walk record (two child boxes, refs, counts) and of one
+# triangle record (v0, e1, e2) of accel/bvh.py:walk_layout
+RECORD_BYTES = 64
+TRI_RECORD_BYTES = 48
+# rays of each kernel #1 launch of a sampled main path (a strided sample)
+# whose scene reads are counted for the frame's bytes bound
+READS_SAMPLE = 2048
 # the three traversal kernels, each held to traverse_plain: module, CUDA
 # wrapper, the walk it takes (of WALKS, whose plain version takes its
 # steps), the walk its wrapper runs on the CPU (its plain version, timed),
@@ -261,11 +282,44 @@ def ray_sets(scene, width, height, torch):
     return sets
 
 
-def scene_bytes(name, tris, bvh) -> int:
-    """Bytes of the scene arrays a traversal kernel reads, each once: the
-    64-byte node and 48-byte triangle records of the walk, which all three
-    read."""
-    return 64 * bvh.walk_nodes.shape[0] + 48 * bvh.walk_tris.shape[0]
+def scene_bytes(bvh) -> dict:
+    """Bytes of the scene arrays the traversal kernels read from: the
+    walk records and the triangle records (all three read both), and
+    their sum."""
+    rec = RECORD_BYTES * bvh.walk_nodes.shape[0]
+    tri = TRI_RECORD_BYTES * bvh.walk_tris.shape[0]
+    return dict(record_bytes=rec, triangle_bytes=tri, scene_bytes=rec + tri)
+
+
+def ray_bytes(rays, live) -> int:
+    """Bytes the rays of a traversal move: RAY_BYTES a live ray,
+    DEAD_RAY_BYTES a lane that is not traced."""
+    return RAY_BYTES * live + DEAD_RAY_BYTES * (rays - live)
+
+
+def walk_reads(scene, o, d, lo, hi, any_hit, group=None, groups=1):
+    """Bytes of the scene that the ordered walk (walk_plain, kernel #1's)
+    reads on these rays: the walk records it steps at and the triangle
+    records it tests, each counted once in each group of rays (group:
+    each ray's group in [0, groups), default one group).  This, not the
+    whole scene, is what the traversal function needs to move; a (groups,)
+    int64 tensor."""
+    import torch
+    from evplp_tpu_torch.trace.traverse import walk_plain
+    bvh, dev = scene.bvh, o.device
+    seen = {"records": torch.zeros((groups, bvh.walk_nodes.shape[0]),
+                                   dtype=torch.bool, device=dev),
+            "slots": torch.zeros((groups, bvh.walk_tris.shape[0]),
+                                 dtype=torch.bool, device=dev)}
+    g = (torch.zeros((o.shape[0],), dtype=torch.long, device=dev)
+         if group is None else group)
+
+    def reads(what, rid, ids):
+        seen[what][g[rid], ids.long()] = True
+
+    walk_plain(scene.tris, bvh, o, d, lo, hi, any_hit, work={"reads": reads})
+    return (RECORD_BYTES * seen["records"].sum(1)
+            + TRI_RECORD_BYTES * seen["slots"].sum(1))
 
 
 def walk_ops(walk, work) -> int:
@@ -415,20 +469,20 @@ def exact_check(label, bvh, o, d, lo, hi, any_hit, k, p) -> dict:
     return out
 
 
-def kernel_check(name, sets, scene, torch) -> dict:
+def kernel_check(name, sets, scene, torch, label=None) -> dict:
     """A traversal kernel against traverse_plain (exact_check) and against
     its own walk's plain version (equal results) on each ray set; returns
     the kernel's entry, with its plain version's time (the walk its
-    wrapper runs on the CPU), the bytes bound and the operations and
-    counts of each walk it ran on each set (traversal_bounds turns the
-    operations into its bound, traversal_work_shape prints the counts)."""
+    wrapper runs on the CPU) and the operations and counts of each walk
+    it ran on each set (traversal_bounds turns the operations into its
+    bound, traversal_work_shape prints the counts).
+    label names the phase lines (default: the kernel's)."""
     mod = traversal_module(name)
     spec = TRAVERSALS[name]
     cuda_fn = getattr(mod, spec["cuda"])
-    entry = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, bytes_ms={},
-                 ops={}, counts={})
-    phase_name = "kernel_check" if name == "bvh_traverse" else \
-        f"{name}_kernel_check"
+    entry = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, ops={}, counts={})
+    phase_name = label or ("kernel_check" if name == "bvh_traverse" else
+                           f"{name}_kernel_check")
     for set_name, (o, d, lo, hi, any_hit) in sets.items():
         args = (scene.tris, scene.bvh, o, d, lo, hi, any_hit)
         k = cuda_fn(*args)
@@ -449,16 +503,12 @@ def kernel_check(name, sets, scene, torch) -> dict:
         check = exact_check(f"{phase_name}/{set_name}", scene.bvh, o, d,
                             lo, hi, any_hit, k, p)
         ms = cuda_ms(lambda: cuda_fn(*args), reps=20)
-        bytes_ms = (RAY_BYTES * o.shape[0] + scene_bytes(
-            name, scene.tris, scene.bvh)) / PEAK_BYTES_PER_S * 1e3
         walk_ops_ = {"skip_pointer": ref_ops, spec["walk"]: ops}
         walk_counts = {"skip_pointer": ref_work, spec["walk"]: counts}
         phase(phase_name, set=set_name, **check, kernel_ms=ms,
-              plain_ms=plain_ms, walk_ops=walk_ops_, walk_counts=walk_counts,
-              bytes_bound_ms=bytes_ms)
+              plain_ms=plain_ms, walk_ops=walk_ops_, walk_counts=walk_counts)
         entry["ms"] += ms
         entry["plain_ms"] += plain_ms
-        entry["bytes_ms"][set_name] = bytes_ms
         entry["ops"][set_name] = walk_ops_
         entry["counts"][set_name] = walk_counts
         entry["max_abs_err"] = max(entry["max_abs_err"],
@@ -506,27 +556,30 @@ def traversal_work_shape(label, per_set: dict) -> dict:
     return shapes
 
 
-def traversal_bounds(entries: dict):
+def traversal_bounds(entries: dict, sets: dict, scene,
+                     label: str = "samples"):
     """Set every traversal kernel's bound_ms from the function they share:
-    on each sample set the fewest bytes of the three kernels and the fewest
-    operations of the four walks; the bound is the larger of the two
-    times, summed over the sets."""
-    sets = next(iter(entries.values()))["ops"]
+    on each sample set the bytes it needs (the rays', ray_bytes, and the
+    scene's that walk_reads counts) and the fewest operations of the walks the
+    kernels in entries ran; the bound is the larger of the two times,
+    summed over the sets.  label names the sample sets."""
     least = {}
-    for s in sets:
+    for s, (o, d, lo, hi, any_hit) in sets.items():
         walks = {w: n for e in entries.values()
                  for w, n in e["ops"][s].items()}
         walk = min(walks, key=walks.get)
-        least[s] = dict(ops=walks[walk], walk=walk,
-                        bytes_ms=min(e["bytes_ms"][s]
-                                     for e in entries.values()))
+        read = int(walk_reads(scene, o, d, lo, hi, any_hit)[0])
+        least[s] = dict(ops=walks[walk], walk=walk, scene_bytes_read=read,
+                        bytes_ms=(ray_bytes(o.shape[0], int((hi > lo).sum()))
+                                  + read) / PEAK_BYTES_PER_S * 1e3)
     bytes_ms = sum(x["bytes_ms"] for x in least.values())
     ops_ms = sum(x["ops"] for x in least.values()) / PEAK_F32_PER_S * 1e3
     for e in entries.values():
-        del e["bytes_ms"], e["ops"], e["counts"]
+        del e["ops"], e["counts"]
         e["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         e["bound_ms"] = max(bytes_ms, ops_ms)
-    phase("traversal_bound", per_set=least, bytes_bound_ms=bytes_ms,
+    phase("traversal_bound", sets=label, per_set=least,
+          bytes_bound_ms=bytes_ms,
           ops_bound_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms))
 
 
@@ -536,13 +589,16 @@ class LaunchTimer:
     record, also keeps each launch's rays and result; with kind (a function
     of the kernel's name, any_hit and the ray count that names the cast's
     kind, or None), keeps, for the first launch of each kind, a strided
-    sample of CHECK_RAYS of its live rays with their results."""
+    sample of CHECK_RAYS of its live rays with their results, and of every
+    launch of a kind a strided sample of READS_SAMPLE of its rays (live or
+    not: no host sync) for launch_reads."""
 
     def __init__(self, torch, record: bool = False, kind=None):
         self.torch, self.record, self.kind = torch, record, kind
         self.real = {n: getattr(traversal_module(n), TRAVERSALS[n]["cuda"])
                      for n in TRAVERSALS}
         self.events, self.casts, self.samples = [], [], {}
+        self.read_samples = []
 
     def __enter__(self):
         def timed(name):
@@ -556,8 +612,13 @@ class LaunchTimer:
                 ev[1].record()
                 kind = self.kind and self.kind(name, any_hit, o.shape[0])
                 self.events.append((name, any_hit, o.shape[0],
-                                    (t_max > t_min).sum(),
-                                    scene_bytes(name, tris, bvh), kind, ev))
+                                    (t_max > t_min).sum(), kind, ev))
+                if kind:
+                    idx = self.torch.arange(
+                        0, o.shape[0], max(1, o.shape[0] // READS_SAMPLE),
+                        device=o.device)[:READS_SAMPLE]
+                    self.read_samples.append((any_hit, tuple(
+                        x[idx].contiguous() for x in (o, d, t_min, t_max))))
                 if self.record:
                     self.casts.append((o.clone(), d.clone(), t_min.clone(),
                                        t_max.clone(), any_hit,
@@ -582,26 +643,27 @@ class LaunchTimer:
 
     def summary(self) -> dict:
         """Launches, rays, live rays (t_max > t_min), kernel ms and the
-        bytes bound (each input read once, each output written once), per
-        kernel and cast kind, keyed "<kernel>.<closest|any_hit>"."""
+        time of the rays' bytes (ray_bytes; the scene's bytes are counted
+        by launch_reads), per kernel
+        and cast kind, keyed "<kernel>.<closest|any_hit>"."""
         self.torch.cuda.synchronize()
         out = {}
-        for name, any_hit, rays, live, sbytes, _, (s, e) in self.events:
+        for name, any_hit, rays, live, _, (s, e) in self.events:
             key = f"{name}.{'any_hit' if any_hit else 'closest'}"
             k = out.setdefault(key, dict(launches=0, rays=0, live_rays=0,
-                                         ms=0.0, bytes_bound_ms=0.0))
+                                         ms=0.0, ray_bytes_ms=0.0))
             k["launches"] += 1
             k["rays"] += rays
             k["live_rays"] += int(live)
             k["ms"] += s.elapsed_time(e)
-            k["bytes_bound_ms"] += ((RAY_BYTES * rays + sbytes)
-                                    / PEAK_BYTES_PER_S * 1e3)
+            k["ray_bytes_ms"] += (ray_bytes(rays, int(live))
+                                  / PEAK_BYTES_PER_S * 1e3)
         return out
 
     def live_by_kind(self) -> dict:
         """Live rays of all launches, per cast kind."""
         out: dict = {}
-        for *_, live, _, kind, _ in self.events:
+        for *_, live, kind, _ in self.events:
             if kind:
                 out[kind] = out.get(kind, 0) + int(live)
         return out
@@ -620,11 +682,35 @@ def cast_kind(width, height):
     return kind
 
 
+def launch_reads(samples, scene, torch) -> dict:
+    """The scene bytes that each sampled launch reads (walk_reads on its
+    READS_SAMPLE rays, each launch a group of its own), summed over the
+    launches of each of closest and any hit.  A launch reads at least what
+    a subset of its rays reads, so this is a lower count."""
+    out = {}
+    for any_hit in (False, True):
+        mine = [x for a, x in samples if a == any_hit]
+        if not mine:
+            continue
+        cols = [torch.cat([x[i] for x in mine]) for i in range(4)]
+        group = torch.cat([torch.full((x[0].shape[0],), j, dtype=torch.long,
+                                      device=x[0].device)
+                           for j, x in enumerate(mine)])
+        read = walk_reads(scene, *cols, any_hit, group=group,
+                          groups=len(mine))
+        out["any_hit" if any_hit else "closest"] = dict(
+            launches=len(mine), scene_bytes_read=int(read.sum()),
+            most_of_one_launch=int(read.max()))
+    return out
+
+
 def sampled_casts_check(label, run, scene, torch) -> dict:
     """Kernel #1 against traverse_plain on the sampled rays of each cast
-    kind of a main path (exact_check), and the frame's operations bound:
-    per kind the fewest walk operations on FRAME_OPS_SAMPLE of the sampled
-    live rays, scaled to the kind's live rays per frame."""
+    kind of a main path (exact_check), and the frame's bounds: of
+    operations, per kind the fewest walk operations on FRAME_OPS_SAMPLE
+    of the sampled live rays, scaled to the kind's live rays per frame; of
+    bytes, every launch's rays and the scene bytes that launch_reads
+    counts."""
     from evplp_tpu_torch.trace.traverse import traverse_plain
     t0 = time.perf_counter()
     checks, kinds, ops = {}, {}, 0.0
@@ -645,9 +731,13 @@ def sampled_casts_check(label, run, scene, torch) -> dict:
     kernel_ms = run["casts"].get("bvh_traverse.closest", {}).get("ms", 0.0)
     kernel_ms += run["casts"].get("bvh_traverse.any_hit", {}).get("ms", 0.0)
     kernel_ms /= run["frames"]
-    bytes_ms = sum(c["bytes_bound_ms"] for k, c in run["casts"].items()
-                   if k.startswith("bvh_traverse.")) / run["frames"]
+    reads = launch_reads(run["read_samples"], scene, torch)
+    scene_read = sum(x["scene_bytes_read"] for x in reads.values())
+    bytes_ms = (sum(c["ray_bytes_ms"] for k, c in run["casts"].items()
+                    if k.startswith("bvh_traverse."))
+                + scene_read / PEAK_BYTES_PER_S * 1e3) / run["frames"]
     out = dict(checks=checks, per_kind=kinds, sample_rays=FRAME_OPS_SAMPLE,
+               scene_reads=reads, reads_sample_rays=READS_SAMPLE,
                ops_per_frame=ops, ops_bound_ms=bound_ms,
                bytes_bound_ms=bytes_ms, bound_ms=max(bound_ms, bytes_ms),
                bound_by="bytes" if bytes_ms >= bound_ms else "operations",
@@ -1198,7 +1288,9 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
     `launched` and none of `not_launched`; with dense (a scene of at most
     BRUTE_FORCE_MAX_TRIS triangles, whose casts take the dense path), that
     it launched no traversal kernel instead.  Prints the phase line
-    `label`, with the fields `extra(run)` adds, and returns the run.  With
+    `label`, with the fields `extra(run)` adds (peak_mem_gib, the device's
+    peak in the run; run_peak_mem_gib, less what was held before it), and
+    returns the run.  With
     sample_casts, the run keeps a sample of each cast kind of kernel #1
     (LaunchTimer, cast_kind).  cli_args are added to the CLI's
     arguments."""
@@ -1217,6 +1309,7 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
         block = cfg[tech]
         out_dir = os.path.join(tmp, "out")
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         buf = io.StringIO()
         zero_counts()
         kinds = cast_kind(cfg["resX"], cfg["resY"]) if sample_casts else None
@@ -1260,12 +1353,14 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
             raise AssertionError(f"{label} launched {k}: {launches}")
     run = dict(stats=stats, stat=stat, imgs=imgs, launches=launches,
                casts=casts, vsl_calls=vsl_calls, samples=timer.samples,
+               read_samples=timer.read_samples,
                live_by_kind=timer.live_by_kind(),
                frames=stats["numIterations"] + 1)  # + the warm-up frame
     per_frame = cast_totals(casts, run["frames"])
     frame_ms = stats["timeMs"] / stats["numIterations"]
     main_img = imgs[IMAGE_KEYS[tech][0]]
-    phase(label, config=os.path.relpath(config, HERE),
+    phase(label, config=os.path.relpath(config, HERE)
+          if config.startswith(HERE) else os.path.basename(config),
           width=main_img.shape[1], height=main_img.shape[0],
           iterations=stats["numIterations"], time_ms=stats["timeMs"],
           ms_per_frame=frame_ms, stat_json=stat,
@@ -1276,7 +1371,8 @@ def main_path(label, config, iterations, torch, kind, smi, launched=(),
           live_mray_per_s=per_frame["live_rays"] / frame_ms / 1e3,
           kernel_ms_per_frame=per_frame["ms"], kernel_by_cast=casts,
           image_means={k: float(v.mean()) for k, v in imgs.items()},
-          peak_mem_gib=peak_gib, device=kind, nvidia_smi=smi,
+          peak_mem_gib=peak_gib, run_peak_mem_gib=peak_gib - held / 2**30,
+          device=kind, nvidia_smi=smi,
           wall_s=time.perf_counter() - t0,
           **(extra(run) if extra else {}))
     return run
@@ -1297,33 +1393,41 @@ def ours_extra(job):
     return extra
 
 
+def vsl_frame_work(run) -> dict:
+    """The VSL frame's shadow segments, gated pairs and samples, and the
+    sample kernel's launches, time and bytes bound per frame."""
+    frames, calls = run["frames"], run["vsl_calls"]
+    shadow = run["casts"].get("bvh_traverse.any_hit", {})
+    return dict(shadow_segments_per_frame=shadow.get("rays", 0) / frames,
+                live_shadow_segments_per_frame=shadow.get("live_rays", 0)
+                / frames,
+                gated_pairs_per_frame=calls["pairs"] / frames,
+                samples_per_frame=calls["samples"] / frames,
+                vsl_kernel_launches=calls["launches"],
+                vsl_kernel_ms_per_frame=calls["ms"] / frames,
+                vsl_kernel_bytes_bound_ms_per_frame=calls["bytes_bound_ms"]
+                / frames)
+
+
 def vsl_extra(entry):
-    """The VSL frame's shadow segments, gated pairs, samples, and the sample
-    kernel's time and bounds per frame: the bytes bound, the operations
-    bound of all the work and that of what the inputs need (the check
-    group's needed operations per sample, scaled by each launch's
-    samples), with the share of each reached, the check group's lane
-    efficiency and the kernel's registers."""
+    """vsl_frame_work, and the sample kernel's operations bounds per
+    frame: of all the work and of what the inputs need (the check group's
+    needed operations per sample, scaled by each launch's samples), with
+    the share of each reached, the check group's lane efficiency and the
+    kernel's registers."""
     from evplp_tpu_torch.native import build
 
     def extra(run):
         frames, calls = run["frames"], run["vsl_calls"]
-        shadow = run["casts"].get("bvh_traverse.any_hit", {})
+        out = vsl_frame_work(run)
         samples, pairs = calls["samples"], calls["pairs"]
         all_ms = vsl_ops_ms(pairs, samples) / frames
         need_ms = vsl_ops_ms(pairs, samples, entry["ops_per_sample"]) / frames
-        ms = calls["ms"] / frames
-        bytes_ms = calls["bytes_bound_ms"] / frames
+        ms = out["vsl_kernel_ms_per_frame"]
+        bytes_ms = out["vsl_kernel_bytes_bound_ms_per_frame"]
         return dict(
-            shadow_segments_per_frame=shadow.get("rays", 0) / frames,
-            live_shadow_segments_per_frame=shadow.get("live_rays", 0)
-            / frames,
-            gated_pairs_per_frame=pairs / frames,
-            samples_per_frame=samples / frames,
-            vsl_kernel_ms_per_frame=ms,
-            vsl_kernel_ops_bound_ms_per_frame=need_ms,
+            out, vsl_kernel_ops_bound_ms_per_frame=need_ms,
             vsl_kernel_ops_bound_all_ms_per_frame=all_ms,
-            vsl_kernel_bytes_bound_ms_per_frame=bytes_ms,
             vsl_kernel_share_of_bound=max(bytes_ms, need_ms) / ms,
             vsl_kernel_share_of_bound_all=max(bytes_ms, all_ms) / ms,
             vsl_check_lane_efficiency=entry["lane_efficiency"],
@@ -1349,20 +1453,16 @@ def pt_impls(torch) -> dict:
 
     job = load_config(PT_CONFIG, device="cuda")
     scene = job.scene
-    # the JAX dispatch's fused-node rule: on a scene built with fused node
-    # rows (above 280,000 triangles) every value runs packet3
-    fused = dataclasses.replace(scene.bvh, fused_nodes=True)
-    on_this, on_fused = {}, {}
+    # the fused-node rule on a real fused scene: big_scene's fused_dispatch
+    on_this = {}
     try:
         for spec in TRAVERSALS.values():
             intersect.PACKET_IMPL = spec["impl"]
             on_this[spec["impl"]] = intersect.traversal_impl(scene.bvh)
-            on_fused[spec["impl"]] = intersect.traversal_impl(fused)
     finally:
         intersect.PACKET_IMPL = "packet3"
     phase("pt_dispatch", triangles=scene.num_triangles,
-          fused_nodes=scene.bvh.fused_nodes, impl_on_this_scene=on_this,
-          impl_on_a_fused_scene=on_fused)
+          fused_nodes=scene.bvh.fused_nodes, impl_on_this_scene=on_this)
     job = dataclasses.replace(job, params=dataclasses.replace(
         job.params, num_max_iteration=1, time_limit_ms=-1.0, use_stat=False,
         output_filename="", write_every_frame=False))
@@ -1543,14 +1643,16 @@ def walk_pad_cost(label, sets, scene, torch) -> dict:
     return out
 
 
-def lvc_config(directory) -> str:
-    """box_field_ours.json with its technique block renamed to
-    lvcphotonfam (absolute scene paths), written into directory."""
-    path = write_config(CONFIG, directory, {})
+def lvc_config(directory, config=CONFIG) -> str:
+    """An "ours" config (box_field_ours.json by default) with its technique
+    block renamed to lvcphotonfam (absolute scene paths), written into
+    directory as <scene>_lvc.json."""
+    path = write_config(config, directory, {})
     with open(path) as f:
         cfg = json.load(f)
     cfg["lvcphotonfam"] = cfg.pop("photonfam")
-    path = os.path.join(directory, "box_field_lvc.json")
+    path = os.path.join(directory, os.path.basename(config).replace(
+        "_ours", "_lvc"))
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -2094,6 +2196,246 @@ def quality_check(torch) -> list:
     return rows
 
 
+# The large-scene tier: box_field_big_spec(boxes) keeps the box density of
+# box_field and crosses the 280,000-triangle rule (scene/scene.py
+# BIG_SCENE_TRIS: 42-triangle leaves, fused_nodes, so every cast runs
+# kernel #1 whatever PACKET_IMPL says).  box_field_big runs every
+# technique through the CLI; box_field_huge, the JAX package's stretch
+# scene (tools/quality_r05.py:stretch), runs the "ours" frame.
+BIG_SCENES = {"box_field_big": 25_000, "box_field_huge": 200_000}
+BIG_RES = (1280, 720)
+# (label, variant of write_scene_matrix or "lvc", timed frames, kernels
+# launched besides #1, images that must not be all zero, sample_casts,
+# passes of pass_breakdown or None) of each CLI run on a big scene
+BIG_RUNS = {
+    "box_field_big": (
+        ("ours", "ours", 2, (), (), True,
+         ("trace_gbuffer", "trace_light_paths", "vpl_gather",
+          "photon_splat_binned", "light_image")),
+        ("pt", "pt", 1, (), (), False,
+         ("trace_gbuffer", "render_pt_frame", "light_image")),
+        ("vsl", "vsl", 1, ("vsl_sample",), ("weightedVplFilename",), False,
+         ("trace_gbuffer", "trace_light_paths", "vsl_gather",
+          "photon_splat_binned", "light_image")),
+        ("pm", "pm", 1, (), ("weightedPhotonFilename",), False, None),
+        ("vpl", "vpl", 1, (), ("weightedVplFilename",), False, None),
+        ("lvc", "lvc", 1, (), ("weightedVplFilename",), True,
+         ("trace_gbuffer", "trace_light_paths", "lvc_gather",
+          "photon_splat_binned", "light_image"))),
+    "box_field_huge": (
+        ("ours", "ours", 1, (), (), True,
+         ("trace_gbuffer", "trace_light_paths", "vpl_gather",
+          "photon_splat_binned", "light_image")),),
+}
+
+
+def big_scene_export(directory, name, boxes) -> tuple:
+    """The scene's configs at BIG_RES, written by
+    scene/export.py:write_scene_matrix into directory (OBJs once), and the
+    "ours" config renamed to lvcphotonfam: ({variant: path}, seconds)."""
+    from evplp_tpu_torch.scene.export import write_scene_matrix
+    from evplp_tpu_torch.scene.procedural import box_field_big_spec
+    t0 = time.perf_counter()
+    paths = write_scene_matrix(directory, name, box_field_big_spec(boxes),
+                               BIG_RES)
+    configs = {os.path.basename(p)[len(name) + 1:-len(".json")]: p
+               for p in paths}
+    configs["lvc"] = lvc_config(os.path.dirname(configs["ours"]),
+                                configs["ours"])
+    return configs, time.perf_counter() - t0
+
+
+def big_scene_load(name, boxes, configs, export_s, torch):
+    """Load the "ours" config on the card through load_config, timing the
+    OBJ parses (the scene's and the light's) and the BVH build inside it
+    (a stand-in never called fails the load: the timing missed it), and
+    print the scene's report:
+    triangles, slots, nodes, leaves, depth against the kernels' stack,
+    the walk and triangle records' bytes, the seconds, the device memory
+    the scene holds.  Returns (job, report)."""
+    from evplp_tpu_torch.accel.bvh import walk_pad
+    from evplp_tpu_torch.scene import config as config_mod
+    from evplp_tpu_torch.scene import scene as scene_mod
+    from evplp_tpu_torch.scene.config import load_config
+    from evplp_tpu_torch.trace.traverse import STACK_DEPTH
+    secs = {"load_obj": 0.0, "build_bvh": 0.0}
+    calls = dict.fromkeys(secs, 0)
+    real = {"load_obj": config_mod.load_obj,
+            "build_bvh": scene_mod.build_bvh}
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            secs[key] += time.perf_counter() - t
+            calls[key] += 1
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    config_mod.load_obj = timed("load_obj", real["load_obj"])
+    scene_mod.build_bvh = timed("build_bvh", real["build_bvh"])
+    t0 = time.perf_counter()
+    try:
+        job = load_config(configs["ours"], device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        config_mod.load_obj, scene_mod.build_bvh = (real["load_obj"],
+                                                    real["build_bvh"])
+    load_s = time.perf_counter() - t0
+    if not all(calls.values()):
+        raise AssertionError(f"{name}: load_config's OBJ parses and BVH "
+                             f"build were not all timed: {calls}")
+    sc, bvh = job.scene, job.scene.bvh
+    obj = os.path.join(os.path.dirname(configs["ours"]), f"{name}.obj")
+    report = dict(
+        boxes=boxes, width=job.width, height=job.height,
+        triangles=int((sc.tri_shade[:, 8:11] != 0).any(1).sum()),
+        slots=sc.num_triangles, fused_nodes=bvh.fused_nodes, rpl=bvh.rpl,
+        leaf_max_tris=int(bvh.node_count.max()),
+        nodes=bvh.node_min.shape[0], leaves=int((bvh.node_count > 0).sum()),
+        bvh_depth=bvh.depth, stack_depth=STACK_DEPTH,
+        walk_records=bvh.walk_nodes.shape[0], **scene_bytes(bvh),
+        walk_pad=float(walk_pad(bvh.node_min[:1].cpu().numpy(),
+                                bvh.node_max[:1].cpu().numpy())),
+        obj_bytes=os.path.getsize(obj), export_s=export_s,
+        load_config_s=load_s, load_obj_s=secs["load_obj"],
+        build_bvh_s=secs["build_bvh"], timed_calls=calls,
+        scene_device_gib=(torch.cuda.memory_allocated() - before) / 2**30,
+        load_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    phase("big_scene_report", scene=name, **report)
+    if not bvh.fused_nodes or report["leaf_max_tris"] <= 14:
+        raise AssertionError(f"{name}: not built with fused 42-triangle "
+                             f"leaves: {report}")
+    if bvh.depth >= STACK_DEPTH:
+        raise AssertionError(f"{name}: BVH depth {bvh.depth}")
+    return job, report
+
+
+def big_kernel_check(name, sets, scene, torch) -> dict:
+    """Kernel #1 against traverse_plain (exact_check) and its own walk on
+    the scene's ray sets (kernel_check), the four walks' work there, and
+    the bound recounted from them (traversal_bounds).  Returns #1's
+    entry."""
+    label = f"{name}_kernel_check"
+    entry = kernel_check("bvh_traverse", sets, scene, torch, label=label)
+    for s, (o, d, lo, hi, any_hit) in sets.items():
+        for walk in ("packet7", "packet"):
+            _, ops, counts = run_walk(walk, scene.tris, scene.bvh, o, d, lo,
+                                      hi, any_hit)
+            entry["ops"][s][walk] = ops
+            entry["counts"][s][walk] = counts
+    traversal_work_shape(f"{name}_samples", entry["counts"])
+    traversal_bounds({"bvh_traverse": entry}, sets, scene,
+                     label=f"{name}_samples")
+    phase(label, set="all", ms=entry["ms"], plain_ms=entry["plain_ms"],
+          bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+          share_of_bound=entry["bound_ms"] / entry["ms"],
+          max_abs_err=entry["max_abs_err"])
+    return entry
+
+
+def fused_dispatch_check(name, sets, scene, torch) -> dict:
+    """The fused-node rule on a big scene: under each PACKET_IMPL value,
+    intersect's casts of the ray sets launch kernel #1 once a set and
+    neither #2 nor #3, with #1's hits."""
+    from evplp_tpu_torch.trace import intersect
+    from evplp_tpu_torch.trace.traverse import traverse_cuda
+    out = {}
+    try:
+        for spec in TRAVERSALS.values():
+            intersect.PACKET_IMPL = spec["impl"]
+            zero_counts()
+            same = True
+            for o, d, lo, hi, any_hit in sets.values():
+                want = traverse_cuda(scene.tris, scene.bvh, o, d, lo, hi,
+                                     any_hit)
+                if any_hit:
+                    got = intersect.intersect_any(scene.tris, scene.bvh, o,
+                                                  d, lo, hi)
+                    same &= bool(torch.equal(got, want[1] >= 0))
+                else:
+                    hit = intersect.intersect_closest(scene.tris, scene.bvh,
+                                                      o, d, lo, hi)
+                    same &= not bool(differs(
+                        (hit.t, hit.prim, hit.u, hit.v), want, lo, hi,
+                        False).any())
+            counts = read_counts()
+            out[spec["impl"]] = dict(
+                runs=intersect.traversal_impl(scene.bvh), launches=counts,
+                equal_to_bvh_traverse=same)
+            if (counts["bvh_traverse"] != 2 * len(sets) or counts["packet7"]
+                    or counts["packet"] or not same):
+                raise AssertionError(f"{name}: PACKET_IMPL={spec['impl']} "
+                                     f"gave {out[spec['impl']]}")
+    finally:
+        intersect.PACKET_IMPL = "packet3"
+    phase("fused_dispatch", scene=name, per_impl=out)
+    return out
+
+
+def big_scene_check(torch, kind, smi) -> dict:
+    """The large-scene tier on the card: for each scene of BIG_SCENES, its
+    configs written by write_scene_matrix, its load and report, kernel #1
+    against traverse_plain on the ray sets (and the bound recounted), on
+    box_field_big the fused dispatch under each PACKET_IMPL, and the CLI
+    runs of BIG_RUNS at full size with the main paths' gates (main_path),
+    kernel #1 against traverse_plain on a sample of each cast kind of the
+    runs with sample_casts, and the passes of each run that has them.
+    Returns the kernels' launches in the CLI runs."""
+    from evplp_tpu_torch.scene.config import load_config
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, boxes in BIG_SCENES.items():
+            t0 = time.perf_counter()
+            configs, export_s = big_scene_export(tmp, name, boxes)
+            job, report = big_scene_load(name, boxes, configs, export_s,
+                                         torch)
+            sets = ray_sets(job.scene, job.width, job.height, torch)
+            big_kernel_check(name, sets, job.scene, torch)
+            if name == "box_field_big":
+                fused_dispatch_check(name, sets, job.scene, torch)
+            del sets
+            for label, variant, frames, launched, nonzero, sample, passes \
+                    in BIG_RUNS[name]:
+                label = f"{name}_{label}"
+                extra = {"ours": ours_extra(job), "vsl": vsl_frame_work,
+                         "lvc": lvc_extra}.get(variant)
+                run = main_path(label, configs[variant], frames, torch, kind,
+                                smi, launched=launched,
+                                not_launched=tuple(
+                                    k for k in ("packet7", "packet",
+                                                "vsl_sample")
+                                    if k not in launched),
+                                nonzero=nonzero, extra=extra,
+                                sample_casts=sample)
+                for k, v in run["launches"].items():
+                    launches[k] += v
+                if sample:
+                    sampled_casts_check(f"{label}_casts", run, job.scene,
+                                        torch)
+                del run
+                if passes is None:
+                    continue
+                t1 = time.perf_counter()
+                pjob = job if variant == "ours" else load_config(
+                    configs[variant], device="cuda")
+                passes_ms = pass_breakdown(pjob, torch, passes)
+                phase("pass_breakdown", config=os.path.basename(
+                    configs[variant]), ms_per_frame=passes_ms,
+                    sum_ms=sum(passes_ms.values()),
+                    wall_s=time.perf_counter() - t1)
+                del pjob
+            del job
+            phase("big_scene_done", scene=name,
+                  scene_device_gib=report["scene_device_gib"],
+                  wall_s=time.perf_counter() - t0)
+            shutil.rmtree(os.path.join(tmp, name))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2147,12 +2489,12 @@ def main() -> int:
     traversal_work_shape("samples", {
         s: {w: c for e in entries.values() for w, c in e["counts"][s].items()}
         for s in sets})
-    traversal_bounds(entries)
+    traversal_bounds(entries, sets, scene)
     walk_pad_cost("samples", sets, scene, torch)
     phase("kernel_check_done", triangles=scene.num_triangles,
           nodes=scene.bvh.node_min.shape[0], bvh_depth=scene.bvh.depth,
           walk_records=scene.bvh.walk_nodes.shape[0],
-          walk_bytes=scene_bytes("bvh_traverse", scene.tris, scene.bvh),
+          **scene_bytes(scene.bvh),
           leaf_rows=scene.bvh.pk_tri_rows.shape[0], scene_load_s=load_s,
           wall_s=time.perf_counter() - t0)
     del sets
@@ -2251,7 +2593,13 @@ def main() -> int:
               wall_s=time.perf_counter() - t0)
         del ljob
 
-    # ---- 9: the textured livingroom scene (192 triangles and the light:
+    # ---- 9: the large-scene tier (box_field_big, every technique, and
+    # the 2.4M-triangle box_field_huge, "ours"; fused 42-triangle leaves,
+    # so every cast runs #1) ----
+    for k, v in big_scene_check(torch, kind, smi).items():
+        launches[k] += v
+
+    # ---- 10: the textured livingroom scene (192 triangles and the light:
     # every cast takes the dense path, no traversal kernel) ----
     rjob = load_config(LIVINGROOM, device="cuda")
     texture_check(rjob, torch)
@@ -2277,10 +2625,10 @@ def main() -> int:
           ms_per_frame=passes, sum_ms=sum(passes.values()),
           wall_s=time.perf_counter() - t0)
 
-    # ---- 10: checkpoint and resume through the CLI ----
+    # ---- 11: checkpoint and resume through the CLI ----
     resume_check(torch)
 
-    # ---- 11: --profile through the CLI, the "ours" and LVC frames under
+    # ---- 12: --profile through the CLI, the "ours" and LVC frames under
     # the profiler, and the image formats on a full-size output ----
     prun = main_path("profile", CONFIG, 2, torch, kind, smi,
                      not_launched=("vsl_sample",), cli_args=("--profile",))
@@ -2297,21 +2645,21 @@ def main() -> int:
     image_io_check(prun["imgs"]["combinedFilename"])
     del prun
 
-    # ---- 12: pixel-row sharding over SHARDS shards of the card, and
+    # ---- 13: pixel-row sharding over SHARDS shards of the card, and
     # --mesh through the CLI ----
     for k, v in shard_check(torch).items():
         launches[k] += v
     for k, v in mesh_cli_check(torch, kind, smi).items():
         launches[k] += v
 
-    # ---- 13: the equal-time quality harness on glossy ----
+    # ---- 14: the equal-time quality harness on glossy ----
     quality_check(torch)
 
     t0 = time.perf_counter()
     phase("reference_check", max_abs_diff=reference_check(),
           wall_s=time.perf_counter() - t0)
 
-    # ---- 14: kernels line, card line, result ----
+    # ---- 15: kernels line, card line, result ----
     if not all(launches[k] > 0 for k in KERNELS):
         raise AssertionError(f"a kernel was never launched: {launches}")
     entries["vsl_sample"] = vsl_entry

@@ -1,4 +1,5 @@
-"""Pinhole camera (counterpart of the JAX package's `scene/camera.py`).
+"""Pinhole camera and its linear animation (counterpart of the JAX
+package's `scene/camera.py`).
 
 JSON "direction" is the look-at POINT.  fovx converts to fovy through
 2 atan(tan(fovx/2)/aspect).  Film convention: row 0 is the image top.
@@ -70,3 +71,29 @@ class Camera:
              + (ndc_y * tan_half_fovy)[:, None] * upv[None, :])
         d = mu.normalize(d)
         return origin.expand_as(d), d
+
+
+@dataclass(frozen=True)
+class AnimationCamera:
+    """Linear interpolation between two cameras (the JAX package's
+    AnimationCamera; reference: RtAnimationCamera, rtcommon.h:600-629,
+    present in the reference but unused by its main).
+
+    at(time_ms) returns the Camera lerped at time_ms / total_time_ms,
+    clamped to [0, 1]; fovy is lerped, the start camera's aspect kept."""
+    start: Camera
+    end: Camera
+    total_time_ms: float
+
+    def at(self, time_ms: float) -> Camera:
+        s = min(max(time_ms / self.total_time_ms, 0.0), 1.0)
+
+        def lerp(a, b):
+            return tuple(av * (1 - s) + bv * s for av, bv in zip(a, b))
+
+        return Camera(
+            origin=lerp(self.start.origin, self.end.origin),
+            look_at=lerp(self.start.look_at, self.end.look_at),
+            up=lerp(self.start.up, self.end.up),
+            fovy=self.start.fovy * (1 - s) + self.end.fovy * s,
+            aspect=self.start.aspect)

@@ -281,17 +281,26 @@ def add_work(work, key, n):
         work[key] = work.get(key, 0) + int(n)
 
 
+def note_reads(work, what, rid, ids):
+    """Pass the walk records ("records") or triangle slots ("slots") ids
+    that rays rid read to work["reads"], a function of (what, rid, ids),
+    where the caller gave one."""
+    if work is not None and "reads" in work:
+        work["reads"](what, rid, ids)
+
+
 class WalkState:
     """The ordered walk of csrc/ray_common.cuh (`step`, `walk`) for a batch
     of rays, in plain PyTorch: each ray's best hit (t, slot, u, v), its
     current record (-1: none), node stack and leaf queue.  walk_plain,
     packet_plain and packet7_plain move rays through it; `rows` index the
     batch.  With wide, internal boxes are tested at t * LEAF_WIDEN_T, as
-    packet.cu's walks test them."""
+    packet.cu's walks test them.  `rid` is each ray's index among the
+    rays it was made with (note_reads passes it on)."""
 
     PER_RAY = ("oa", "da", "inv", "lo", "t", "prim", "u", "v", "cur", "sp",
                "qn", "stack_ref", "stack_near", "q_first", "q_count",
-               "q_near")
+               "q_near", "rid")
 
     def __init__(self, bvh, o, d, t_min, t, wide: bool = False):
         dev, n = o.device, o.shape[0]
@@ -318,6 +327,7 @@ class WalkState:
         self.q_first = torch.zeros((n, QUEUE_CAP), dtype=i64, device=dev)
         self.q_count = torch.zeros_like(self.q_first)
         self.q_near = torch.zeros((n, QUEUE_CAP), dtype=f32, device=dev)
+        self.rid = torch.arange(n, device=dev)
 
     @classmethod
     def in_warps(cls, bvh, o, d, t_min, t_max, wide: bool = False):
@@ -349,6 +359,7 @@ class WalkState:
         stacked node that t still admits."""
         if not ii.numel():
             return
+        note_reads(work, "records", self.rid[ii], self.cur[ii])
         (near_l, near_r, ref_l, ref_r, cnt_l, cnt_r, want_l,
          want_r) = test_children(self.nodes, self.words, self.cur[ii],
                                  self.oa[ii], self.inv[ii], self.t[ii],
@@ -427,6 +438,10 @@ class WalkState:
         *hit, tested = self.leaf_hits(rows, first, count, self.t[rows],
                                       any_hit)
         add_work(work, "tris", tested.sum())
+        if work is not None and "reads" in work:
+            read = self.kk < tested[:, None]
+            note_reads(work, "slots", self.rid[rows][:, None].expand(
+                read.shape)[read], (first[:, None] + self.kk)[read])
         self.offer(rows, *hit)
         return tested
 
@@ -477,7 +492,9 @@ def walk_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
 
     work: optional dict; "steps" and "tris" are incremented by the kernel
     steps (two box tests each) and ray-triangle tests of the walk (an
-    any-hit ray stops at its first hit)."""
+    any-hit ray stops at its first hit); a function work["reads"] is
+    given the records and slots that the rays read (note_reads), the rays
+    named by their index in o."""
     r, dev = o.shape[0], o.device
     check_stack_depth(bvh)
     check_walk_scene(tris, bvh, dev)
@@ -487,6 +504,7 @@ def walk_plain(tris, bvh, o, d, t_min, t_max, any_hit: bool,
     v_out = torch.zeros((r,), dtype=torch.float32, device=dev)
     ids = torch.nonzero(t_max > t_min).squeeze(1)
     ws = WalkState(bvh, o[ids], d[ids], t_min[ids], t_max[ids])
+    ws.rid = ids.clone()
     ws.cur.zero_()
     while ids.numel():
         done = ws.walk_pass(torch.arange(ids.numel(), device=dev), any_hit,

@@ -21,6 +21,8 @@ root is a leaf.
   occlusion on live lanes), and the JAX package's intersect_closest at the
   tolerance of tests/test_torch_trace.py; on rays aimed at the shared
   edges of coincident duplicates it returns the lower slot of each pair.
+* walk_plain reports what it reads (work["reads"]): one record a step, one
+  slot a triangle test, each by a live ray, every hit's slot among them.
 * traverse_cuda and walk_plain raise on a tree deeper than the stack."""
 import dataclasses
 
@@ -184,6 +186,38 @@ def test_walk_plain_equals_traverse_plain(scene, any_hit):
         assert float((want[1] >= 0).float().mean()) > 0.2
     assert 0 < work_w["tris"] <= work_p["tris"]
     assert work_w["steps"] > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_plain_reports_its_reads(scene, any_hit):
+    """work["reads"] sees one record a step and one slot a triangle test,
+    each named by the ray's index in o; only live rays read, and every
+    hit's slot was read by its ray."""
+    name, sc = scene
+    o, d = (torch.from_numpy(x) for x in _scene_rays(name, 500, 13))
+    r = o.shape[0]
+    live = torch.from_numpy(np.random.default_rng(14).uniform(size=r) < 0.7)
+    t_min = torch.full((r,), 1e-4)
+    t_max = torch.where(live, traverse.BIG, 0.0)
+    reads = {"records": [], "slots": []}
+
+    def note(what, rid, ids):
+        reads[what].append(torch.stack([rid, ids.long()], 1))
+
+    work = {"reads": note}
+    _, prim, _, _ = traverse.walk_plain(sc.tris, sc.bvh, o, d, t_min, t_max,
+                                        any_hit, work=work)
+    rec, slot = (torch.cat(reads[k]) for k in ("records", "slots"))
+    assert rec.shape[0] == work["steps"] and slot.shape[0] == work["tris"]
+    assert bool(live[rec[:, 0]].all()) and bool(live[slot[:, 0]].all())
+    assert 0 <= int(rec[:, 1].min()) and int(rec[:, 1].max()) < (
+        sc.bvh.walk_nodes.shape[0])
+    assert 0 <= int(slot[:, 1].min()) and int(slot[:, 1].max()) < (
+        sc.bvh.walk_tris.shape[0])
+    hit = torch.nonzero(prim >= 0).squeeze(1)
+    assert hit.numel() > 0
+    pairs = set(map(tuple, slot.tolist()))
+    assert all((int(i), int(prim[i])) in pairs for i in hit)
 
 
 def test_walk_plain_matches_jax():
